@@ -11,26 +11,32 @@ decisions. The work splits as in the reference:
 * device: decompression, the double scalar multiplication and the
   encode-compare in one CUDA kernel (:mod:`stellar_tpu_torch.ops.verify`).
 
-The verdict is the host gate AND the device bit. This slice runs every
-row through the cold kernel; the reference's hot-signer route (signer
-table cache on) is the next slice.
+The verdict is the host gate AND the device bit. As in the reference,
+:meth:`BatchVerifier.submit` partitions each batch by the process-wide
+signer-table cache (:mod:`stellar_tpu_torch.parallel.signer_tables`, on
+by default): a signer's first sight rides the cold kernel K1 and installs
+its table, every repeat rides the hot kernel K2
+(:class:`Ed25519HotWorkload`) with that table as an operand. With the
+cache off every row rides cold. The split never changes a verdict.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from stellar_tpu_torch.crypto import ed25519_ref as ref
 from stellar_tpu_torch.crypto import native_prep
 from stellar_tpu_torch.ops import verify as vk
+from stellar_tpu_torch.parallel import signer_tables
 from stellar_tpu_torch.parallel.batch_engine import (
     DEFAULT_BUCKET_SIZES, BatchEngine, Workload)
 from stellar_tpu_torch.utils.device import resolve_device
 
-__all__ = ["BatchVerifier", "Ed25519Workload", "default_verifier"]
+__all__ = ["BatchVerifier", "Ed25519Workload", "Ed25519HotWorkload",
+           "default_verifier"]
 
 # libsodium's blocklist, as a (14, 32) uint8 matrix for a vectorized compare.
 _SMALL_ORDER = np.stack([np.frombuffer(e, dtype=np.uint8)
@@ -107,23 +113,105 @@ class Ed25519Workload(Workload):
         return gate & out
 
 
+class Ed25519HotWorkload(Ed25519Workload):
+    """The hot-signer variant of the verify workload: rows whose pubkey has
+    a cached 128-entry table of -A run K2 (:func:`stellar_tpu_torch.ops.
+    verify.verify_kernel_hot`) with the table as an operand, skipping
+    decompression and the table build.
+
+    Items are ``((pk, msg, sig), table)`` pairs: the triple and the cache
+    entry the partitioning :meth:`BatchVerifier.submit` looked up for it.
+    ``encode`` runs the cold workload's host gates over the triples
+    unchanged, then puts the stacked tables in place of the pubkeys."""
+
+    variant_name = "hot"
+
+    def encode(self, items: Sequence[tuple]) -> Tuple[np.ndarray, tuple]:
+        ok, (_a, r, s, h) = super().encode([it for it, _t in items])
+        tables = np.stack([t for _it, t in items])
+        return ok, (tables, r, s, h)
+
+    def pad_rows(self) -> tuple:
+        return (_PAD_TABLE, _PAD_R, _PAD_S, _PAD_H)
+
+    def kernel_fn(self):
+        return vk.verify_kernel_hot
+
+    def on_audit_conviction(self, items: Sequence[tuple]) -> None:
+        """A conviction over a hot-served part evicts every table that
+        served it: a poisoned table must not outlive the audit that caught
+        it (the next sight rebuilds it from the pubkey)."""
+        for (pk, _m, _s), _t in items:
+            signer_tables.signer_table_cache.evict(pk)
+
+
 class BatchVerifier(BatchEngine):
     """Batched libsodium-exact ed25519 verifier: :class:`Ed25519Workload`
-    on the engine.
+    on the engine, with the hot-signer partition in :meth:`submit`.
 
     Args:
       device: ``None`` for the first CUDA card (raises if there is none),
-        ``"cuda[:N]"``, or ``"cpu"`` for the plain PyTorch kernel version.
-      bucket_sizes: padded batch sizes, ascending.
+        ``"cuda[:N]"``, or ``"cpu"`` for the plain PyTorch kernel versions.
+      bucket_sizes: padded batch sizes, ascending; the reference's
+        constructor default, where :func:`default_verifier` takes the
+        full ladder.
     """
 
-    def __init__(self, device=None, bucket_sizes=DEFAULT_BUCKET_SIZES):
+    def __init__(self, device=None, bucket_sizes=(128, 512, 2048)):
         super().__init__(Ed25519Workload(), device=device,
                          bucket_sizes=bucket_sizes)
+        self._hot = Ed25519HotWorkload()
+        self.served["hot"] = 0
+
+    def submit(self, items: Sequence[tuple],
+               variant: Optional[Workload] = None
+               ) -> Callable[[], np.ndarray]:
+        """Partitioning submit: rows whose signer has a cached table ride
+        K2, the rest ride K1. A signer's first sight builds and installs
+        its table at once, so a repeat later in the same batch already
+        rides hot; the first row still rides cold, since its verdict needs
+        the decompression K1 carries. The split depends on the cache alone
+        (content-keyed: two replicas fed the same traffic split alike) and
+        never changes a verdict. With the cache off every row rides
+        cold."""
+        cache = signer_tables.signer_table_cache
+        if variant is not None or not cache.enabled or not len(items):
+            return super().submit(items, variant=variant)
+        hot_idx, hot_items = [], []
+        cold_idx, cold_items = [], []
+        for i, it in enumerate(items):
+            pk = it[0]
+            tab = cache.lookup(pk) if len(pk) == 32 else None
+            if tab is not None:
+                hot_idx.append(i)
+                hot_items.append((it, tab))
+                continue
+            cold_idx.append(i)
+            cold_items.append(it)
+            if len(pk) == 32:
+                built = signer_tables.build_signer_table(pk)
+                if built is not None:
+                    cache.install(pk, built)
+        if not hot_items:
+            return super().submit(items)
+        resolve_hot = super().submit(hot_items, variant=self._hot)
+        resolve_cold = super().submit(cold_items) if cold_items else None
+        hot_ix = np.asarray(hot_idx, dtype=np.intp)
+        cold_ix = np.asarray(cold_idx, dtype=np.intp)
+        n = len(items)
+
+        def resolve() -> np.ndarray:
+            out = np.zeros(n, dtype=bool)
+            out[hot_ix] = resolve_hot()
+            if resolve_cold is not None:
+                out[cold_ix] = resolve_cold()
+            return out
+
+        return resolve
 
     def verify_batch(self, items: Sequence[tuple]) -> np.ndarray:
         """items: (pk, msg, sig) bytes triples -> (n,) bool, libsodium's
-        decision per item."""
+        decision per item, through the partition."""
         return self.compute_batch(items)
 
     def verify_sig(self, pk: bytes, msg: bytes, sig: bytes) -> bool:
@@ -140,6 +228,9 @@ _PAD_R = np.frombuffer(ref.point_compress(ref.IDENTITY),
                        np.uint8).copy()[None]
 _PAD_S = np.zeros((1, 32), dtype=np.uint8)
 _PAD_H = np.zeros((1, 32), dtype=np.uint8)
+# The hot path's padding table: the base point's signer table (zero
+# scalars select no entry, so any valid table would do).
+_PAD_TABLE = signer_tables.build_signer_table(_PAD_A.tobytes())[None]
 
 _defaults: Dict[str, BatchVerifier] = {}
 _defaults_lock = threading.Lock()
@@ -151,5 +242,6 @@ def default_verifier(device=None) -> BatchVerifier:
     key = str(resolve_device(device))
     with _defaults_lock:
         if key not in _defaults:
-            _defaults[key] = BatchVerifier(device=key)
+            _defaults[key] = BatchVerifier(device=key,
+                                           bucket_sizes=DEFAULT_BUCKET_SIZES)
         return _defaults[key]

@@ -12,7 +12,11 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
 * :func:`matching_rows` — raw kernel rows (A, R, s, h) whose scalars are
   arbitrary 256-bit values, including s, h >= 2^255, with R set to
   encode(s*B + h*(-A)), so the device bit must be True although the host
-  gate would reject most of them.
+  gate would reject most of them;
+* :func:`hot_matching_rows` — the same for the hot kernel: rows (signer
+  table, R, s, h) with R set to what the 128-entry tables reach, the top
+  radix-256 digit of s and h often above 128 (where the select
+  saturates).
 """
 
 from __future__ import annotations
@@ -20,9 +24,10 @@ from __future__ import annotations
 import numpy as np
 
 from stellar_tpu_torch.crypto import ed25519_ref as ref
+from stellar_tpu_torch.parallel.signer_tables import build_signer_table
 
 __all__ = ["keypair", "valid_items", "edge_corpus", "matching_rows",
-           "random_rows"]
+           "random_rows", "hot_matching_rows"]
 
 
 def keypair(rng: np.random.Generator):
@@ -121,3 +126,48 @@ def random_rows(rng: np.random.Generator, n: int):
     """``n`` rows of uniformly random bytes for all four operands."""
     return tuple(rng.integers(0, 256, (n, 32), dtype=np.uint8)
                  for _ in range(4))
+
+
+def _hot_scalar(v: int) -> int:
+    """The multiple of B (or -A) that the hot kernel's 128-entry tables
+    give for a 256-bit scalar ``v``: ``v`` itself, unless its top signed
+    radix-256 digit (the top byte plus the carry into it) exceeds 128,
+    which selects entry 128."""
+    carry = 0
+    for i in range(31):
+        carry = int(((v >> (8 * i)) & 0xFF) + carry >= 128)
+    top = (v >> 248) + carry
+    return v - (max(top, 128) - 128) * 256 ** 31
+
+
+def hot_matching_rows(rng: np.random.Generator, n: int):
+    """``n`` raw hot rows (tables (n, 128, 3, 20) int16, r, s, h (n, 32)
+    uint8) whose device bit is True: each table a valid key's signer
+    table, s and h arbitrary 256-bit scalars, R = encode(s'*B + h'*(-A))
+    with s' and h' from :func:`_hot_scalar`. The first rows take extremes
+    (0, 2^255 - 129, 2^255 - 128, 2^256 - 1, top bytes 0x80 and 0x81);
+    after them every other row draws s's and h's top bytes from
+    [0x81, 0xff], so the top digit saturates."""
+    extremes = [0, 2**255 - 129, 2**255 - 128, 2**256 - 1, 0x81 << 248,
+                (0x80 << 248) | (0xFF << 240)]
+    tables = np.zeros((n, 128, 3, 20), np.int16)
+    r = np.zeros((n, 32), np.uint8)
+    s, h = np.zeros_like(r), np.zeros_like(r)
+    for i in range(n):
+        _, pk = keypair(rng)
+        if i < len(extremes):
+            sv, hv = extremes[i], extremes[-1 - i]
+        else:
+            sv, hv = (int.from_bytes(rng.bytes(32), "little")
+                      for _ in range(2))
+            if i % 2:
+                sv = sv % 2**248 + (int(rng.integers(0x81, 0x100)) << 248)
+                hv = hv % 2**248 + (int(rng.integers(0x81, 0x100)) << 248)
+        point = ref.point_add(
+            ref.scalarmult_base(_hot_scalar(sv)),
+            ref.point_mul(_hot_scalar(hv), _neg(ref.point_decompress(pk))))
+        tables[i] = build_signer_table(pk)
+        r[i] = np.frombuffer(ref.point_compress(point), np.uint8)
+        s[i] = np.frombuffer(sv.to_bytes(32, "little"), np.uint8)
+        h[i] = np.frombuffer(hv.to_bytes(32, "little"), np.uint8)
+    return tables, r, s, h

@@ -157,21 +157,11 @@ FE_FN int verify_row(const uint8_t a[32], const uint8_t r[32],
     }
   }
 
-  // encode and compare bytewise with R
-  fe zinv, x, y;
-  fe_invert(zinv, acc.Z);
-  fe_mul(x, acc.X, zinv);
-  fe_mul(y, acc.Y, zinv);
-  uint8_t enc[32];
-  fe_tobytes(enc, y);
-  enc[31] ^= (uint8_t)(fe_isnegative(x) << 7);
-  int eq = 1;
-  for (int b = 0; b < 32; ++b) eq &= enc[b] == r[b];
-  return ok & eq;
+  return ok & ge_p3_encodes_to(acc, r);
 }
 
 #ifdef __CUDACC__
-#include <cuda_runtime.h>
+#include "launch.cuh"
 
 __constant__ verify_consts g_consts;
 
@@ -201,20 +191,6 @@ verify_cold_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ r,
   }
   out[row] = (uint8_t)verify_row(ra, rr, rs, rh, K);
 }
-
-// Makes `device` current for its scope and gives the caller's current
-// device back at the end, so a call never switches the thread's device.
-struct DeviceScope {
-  int prev = -1;
-  cudaError_t err;
-  explicit DeviceScope(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  }
-  ~DeviceScope() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 extern "C" {
 

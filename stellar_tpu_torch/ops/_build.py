@@ -1,11 +1,22 @@
-"""Builds the port's native code at first use and loads it with ctypes.
+"""Builds the port's native code at first use, loads it with ctypes and
+launches its kernels.
 
 CUDA sources (``csrc/*.cu``) go through ``nvcc`` into a shared library with
 a plain C interface (no PyTorch headers: a few seconds to build, where a
 ``torch.utils.cpp_extension`` build takes minutes), under ``build/`` in the
 repo, which git ignores. A library is rebuilt when the hash of its sources
-or of its command changes. A missing compiler or a failed build raises;
-nothing falls back.
+or of its command changes. A missing compiler, a failed build or a failed
+launch raises; nothing falls back.
+
+Every kernel library ``<name>`` exports the same plain-C interface:
+
+* ``int <name>_launch(in..., out, int n, [int extra...,] int device,
+  void* stream)``: launch on ``stream`` without synchronising; returns
+  ``cudaGetLastError()``;
+* ``const char* <name>_error_string(int)``;
+* for a library with a ``__constant__`` block, ``int <name>_consts_bytes()``
+  and ``int <name>_set_consts(const void* host, int device)``, filled once
+  per device from :func:`stellar_tpu_torch.state.port_tables`.
 """
 
 from __future__ import annotations
@@ -17,9 +28,12 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple, Optional, Tuple
 
-__all__ = ["build_library", "nvcc_path", "verify_cold_library",
-           "build_log", "cuda_error_string"]
+import torch
+
+__all__ = ["build_library", "build_log", "nvcc_path", "library",
+           "library_path", "check_operands", "launch", "LIBRARIES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(_PKG)
@@ -28,11 +42,27 @@ KERNEL_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_VERIFY_COLD_SOURCES = ("verify_cold.cu", "ge25519.cuh", "fe25519.cuh")
 
-_lock = threading.Lock()
-_verify_cold = None
-_consts_uploaded: set = set()
+
+class _Spec(NamedTuple):
+    sources: Tuple[str, ...]  # the .cu first, then every header it reads
+    consts: Optional[str]     # key of its __constant__ block in port_tables
+    inputs: int               # device pointers before ``out``
+    extra_ints: int           # int arguments after ``n``
+
+
+LIBRARIES = {
+    "verify_cold": _Spec(("verify_cold.cu", "ge25519.cuh", "fe25519.cuh",
+                          "launch.cuh"), "kernel_consts", 4, 0),
+    "verify_hot": _Spec(("verify_hot.cu", "verify_hot.cuh", "ge25519.cuh",
+                         "fe25519.cuh", "launch.cuh"),
+                        "hot_kernel_consts", 4, 0),
+    "sha256": _Spec(("sha256.cu", "sha256.cuh", "launch.cuh"), None, 2, 1),
+}
+
+_locks = {name: threading.Lock() for name in LIBRARIES}
+_libs: dict = {}
+_consts_uploaded: set = set()  # (library, device index)
 
 
 def build_library(out_path: str, sources, command) -> str:
@@ -85,52 +115,100 @@ def nvcc_path() -> str:
     return nvcc
 
 
-def verify_cold_path() -> str:
-    return os.path.join(KERNEL_DIR, "libverify_cold.so")
+def library_path(name: str) -> str:
+    return os.path.join(KERNEL_DIR, f"lib{name}.so")
 
 
-def _load_verify_cold():
-    src = [os.path.join(CSRC, s) for s in _VERIFY_COLD_SOURCES]
-    path = build_library(verify_cold_path(), src,
+def _load(name: str):
+    spec = LIBRARIES[name]
+    src = [os.path.join(CSRC, s) for s in spec.sources]
+    path = build_library(library_path(name), src,
                          [nvcc_path()] + NVCC_FLAGS + [src[0]])
     lib = ctypes.CDLL(path)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.verify_cold_launch.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
-    lib.verify_cold_launch.restype = i32
-    lib.verify_cold_set_consts.argtypes = [vp, i32]
-    lib.verify_cold_set_consts.restype = i32
-    lib.verify_cold_consts_bytes.argtypes = []
-    lib.verify_cold_consts_bytes.restype = i32
-    lib.verify_cold_error_string.argtypes = [i32]
-    lib.verify_cold_error_string.restype = ctypes.c_char_p
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [vp] * (spec.inputs + 1) + [i32] * (1 + spec.extra_ints) \
+        + [i32, vp]
+    fn.restype = i32
+    fn = getattr(lib, f"{name}_error_string")
+    fn.argtypes = [i32]
+    fn.restype = ctypes.c_char_p
+    if spec.consts is not None:
+        fn = getattr(lib, f"{name}_set_consts")
+        fn.argtypes = [vp, i32]
+        fn.restype = i32
+        fn = getattr(lib, f"{name}_consts_bytes")
+        fn.argtypes = []
+        fn.restype = i32
     return lib
 
 
-def cuda_error_string(lib, err: int) -> str:
-    return lib.verify_cold_error_string(err).decode()
+def _error_string(name: str, lib, err: int) -> str:
+    return getattr(lib, f"{name}_error_string")(err).decode()
 
 
-def verify_cold_library(device):
-    """The K1 library, built and loaded on first use, with the kernel's
-    constants (``state.port_tables()["kernel_consts"]``) copied to
-    ``device``'s ``__constant__`` memory once per device."""
-    global _verify_cold
+def library(name: str, device: torch.device):
+    """Kernel library ``name``, built and loaded on first use, with its
+    ``__constant__`` block copied to ``device`` once per device."""
     from stellar_tpu_torch import state
-    with _lock:
-        if _verify_cold is None:
-            _verify_cold = _load_verify_cold()
-        lib = _verify_cold
-        if device.index not in _consts_uploaded:
-            consts = state.port_tables()["kernel_consts"].contiguous()
-            want = lib.verify_cold_consts_bytes()
-            if consts.numel() * consts.element_size() != want:
-                raise RuntimeError(
-                    f"kernel constants are {want} bytes in csrc, "
-                    f"{consts.numel() * consts.element_size()} in state.py")
-            err = lib.verify_cold_set_consts(
+    spec = LIBRARIES[name]
+    with _locks[name]:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = _load(name)
+        if spec.consts is not None and \
+                (name, device.index) not in _consts_uploaded:
+            consts = state.port_tables()[spec.consts].contiguous()
+            have = consts.numel() * consts.element_size()
+            want = getattr(lib, f"{name}_consts_bytes")()
+            if have != want:
+                raise RuntimeError(f"{name}: the constants are {want} bytes "
+                                   f"in csrc, {have} in state.py")
+            err = getattr(lib, f"{name}_set_consts")(
                 ctypes.c_void_p(consts.data_ptr()), device.index)
             if err != 0:
-                raise RuntimeError("copying the verify constants failed: "
-                                   f"{cuda_error_string(lib, err)}")
-            _consts_uploaded.add(device.index)
+                raise RuntimeError(f"copying the {name} constants failed: "
+                                   f"{_error_string(name, lib, err)}")
+            _consts_uploaded.add((name, device.index))
     return lib
+
+
+def check_operands(fn_name: str, ops, shapes) -> Tuple[torch.device, int]:
+    """Check a kernel wrapper's operands: one device, CPU or CUDA, and
+    ``ops[i]`` of dtype and shape ``(batch,) + tail`` for ``shapes[i] =
+    (dtype, tail)``. Returns ``(device, batch)``; raises ``ValueError``."""
+    dev = ops[0].device
+    n = ops[0].shape[0] if ops[0].dim() > 0 else -1
+    for t, (dtype, tail) in zip(ops, shapes):
+        if t.device != dev:
+            raise ValueError(f"{fn_name} operands are on different "
+                             f"devices: {t.device} and {dev}")
+        if t.dtype != dtype or tuple(t.shape) != (n,) + tuple(tail):
+            want = ", ".join(f"(batch, {', '.join(map(str, tl))}) {dt}"
+                             for dt, tl in shapes)
+            raise ValueError(f"{fn_name} takes {want}; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn_name}: unsupported device {dev}")
+    return dev, n
+
+
+def launch(name: str, inputs, out: torch.Tensor, n: int, *ints) -> None:
+    """Launch kernel library ``name`` over ``n`` rows of ``inputs`` into
+    ``out`` on the current stream of ``out``'s card. Raises on a build or
+    launch failure."""
+    dev = out.device
+    lib = library(name, dev)
+    # the kernels read with 8- and 16-byte loads: a view that starts off
+    # that alignment is copied first
+    inputs = [t.contiguous() for t in inputs]
+    inputs = [t.clone() if t.data_ptr() % 16 else t for t in inputs]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, f"{name}_launch")(
+        *(ctypes.c_void_p(t.data_ptr()) for t in inputs),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_int(n),
+        *(ctypes.c_int(v) for v in ints), ctypes.c_int(dev.index),
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({_error_string(name, lib, err)})")

@@ -2,12 +2,16 @@
 the plain version of the cold subset of ``stellar_tpu/ops/edwards.py``,
 op for op, so every limb compares bit for bit with the reference.
 
+The hot-signer loop (:func:`double_scalarmult_hot`, radix 256 over a
+cached 128-entry table of -A) is here too; its kernel is
+``csrc/verify_hot.cu``.
+
 Points are extended homogeneous ``(X, Y, Z, T)`` tuples (or projective
 ``(X, Y, Z)`` where T is never read); each coordinate is a limb tensor of
 shape ``(20, *batch)`` (:mod:`stellar_tpu_torch.ops.field25519`). All
 formulas are the complete unified ones, valid for every pair of curve
-points, so there is no data-dependent control flow. The CUDA kernel that
-replaces this path is ``csrc/ge25519.cuh``.
+points, so there is no data-dependent control flow. The CUDA code that
+replaces this layer is ``csrc/ge25519.cuh``.
 """
 
 from __future__ import annotations
@@ -22,12 +26,16 @@ __all__ = [
     "identity", "negate", "to_cached", "point_add_cached", "point_double",
     "unpack255", "decompress", "compress_equals", "build_point_table_affine",
     "base_table_affine", "table_select_affine", "double_scalarmult",
+    "base_table_affine_wide", "double_scalarmult_hot",
     "D_LIMBS", "D2_LIMBS", "SQRTM1_LIMBS", "WINDOWS32", "TABLE_ENTRIES32",
+    "WINDOWS256", "TABLE_ENTRIES256",
 ]
 
 WINDOWS32 = 52        # signed radix-32 digits per 256-bit scalar
 TABLE_ENTRIES32 = 16  # entries of each window table
 AFFINE_COORDS = 3     # affine cached entry: (Y+X, Y-X, 2d*T); Z == 1
+WINDOWS256 = 32         # signed radix-256 digits per 256-bit scalar
+TABLE_ENTRIES256 = 128  # entries of each hot window table
 
 D_LIMBS = fe.from_int(ref.D)
 D2_LIMBS = fe.from_int(2 * ref.D % ref.P)
@@ -236,12 +244,29 @@ def base_table_affine(batch_shape, device):
         t.shape + tuple(batch_shape))
 
 
+# The hot loop's B-table: v*B for v = 1..128, affine cached, int16
+# (canonical limbs are 13-bit), from the same host rows as a signer table.
+_BASE_TABLE256 = np.array(
+    [[fe.from_int(c) for c in row]
+     for row in ref.affine_table_rows(ref.BASE, TABLE_ENTRIES256)],
+    dtype=np.int16)
+
+
+def base_table_affine_wide(batch_shape, device):
+    """(128, 3, 20, *batch) int16 constant affine cached table of v*B,
+    v = 1..128 (the hot loop's B-table)."""
+    t = torch.as_tensor(_BASE_TABLE256, device=device)
+    return t.reshape(t.shape + (1,) * len(batch_shape)).expand(
+        t.shape + tuple(batch_shape))
+
+
 def table_select_affine(table, digit):
     """table (entries, 3, 20, *batch) affine cached multiples 1..entries;
-    digit (*batch,) int32 signed with |digit| <= entries -> the affine
-    cached triple |digit|*P, negated for a negative digit. A log-depth
-    conditional-move tree on the magnitude's bits; digit 0 is patched to
-    the affine cached identity (1, 1, 0)."""
+    digit (*batch,) int32 signed -> the affine cached triple |digit|*P,
+    negated for a negative digit. A log-depth conditional-move tree on the
+    magnitude's bits; a magnitude above ``entries`` saturates to the last
+    entry, and digit 0 is patched to the affine cached identity
+    (1, 1, 0). int16 tables widen to int32 at the tree's root."""
     nb = digit.dim()
     mag = digit.abs()
     m = torch.clamp(mag - 1, min=0)
@@ -304,6 +329,36 @@ def _double_scalarmult32(s_digits, h_digits, a_neg):
     acc = point_add_cached(acc, asel0, need_t=False)
     for j in range(1, WINDOWS32):
         for _ in range(4):
+            acc = point_double(acc, need_t=False)
+        acc = point_double(acc)
+        bsel, asel = select_pair(j)
+        acc = point_add_cached(acc, bsel)
+        acc = point_add_cached(acc, asel, need_t=False)
+    return acc
+
+
+def double_scalarmult_hot(s_digits, h_digits, a_table):
+    """R' = s*B + h*(-A) for a hot signer from (32, batch) signed radix-256
+    digits and ``a_table``, the (128, 3, 20, *batch) int16 affine cached
+    multiples 1..128 of -A (the signer-table cache's rows, batch
+    trailing). 248 shared doublings and 63 affine cached adds; the top
+    window seeds the accumulator from its B-entry plus one A-add. A top
+    digit above 128 (s or h with top byte >= 0x81) selects entry 128, as
+    the reference's select does. Returns a projective (X, Y, Z) triple."""
+    batch = tuple(s_digits.shape[1:])
+    tab_b = base_table_affine_wide(batch, s_digits.device)
+    tab = torch.stack([tab_b, a_table], dim=3)  # (128, 3, 20, 2, *batch)
+
+    def select_pair(j):
+        sel = table_select_affine(tab, torch.stack([s_digits[j],
+                                                    h_digits[j]]))
+        return (tuple(c[:, 0] for c in sel), tuple(c[:, 1] for c in sel))
+
+    bsel0, asel0 = select_pair(0)
+    acc = _extended_from_affine_cached(bsel0)
+    acc = point_add_cached(acc, asel0, need_t=False)
+    for j in range(1, WINDOWS256):
+        for _ in range(7):
             acc = point_double(acc, need_t=False)
         acc = point_double(acc)
         bsel, asel = select_pair(j)

@@ -1,28 +1,39 @@
-"""The batch ed25519 verify kernel (K1) — the port of
-``stellar_tpu/ops/verify.py:verify_kernel``.
+"""The batch ed25519 verify kernels — the port of
+``stellar_tpu/ops/verify.py``.
 
-Given a batch of (pubkey A, R, s, h) rows, with ``h = SHA512(R||A||M) mod L``
-computed on the host (:mod:`stellar_tpu_torch.crypto.batch_verifier`), the
-device bit is ``decompress_ok(A) AND encode(s*B + h*(-A)) == R`` bytewise.
-It holds for every 32-byte pattern of each operand; the host's policy gate
-(canonical s and A, small-order R and A, lengths) is ANDed in afterwards.
+Given a batch of rows with ``h = SHA512(R||A||M) mod L`` computed on the
+host (:mod:`stellar_tpu_torch.crypto.batch_verifier`):
 
-* :func:`verify_kernel_plain` is the plain PyTorch version, op for op the
-  JAX function, so its limbs and bits match the reference exactly.
-* :func:`verify_kernel` launches the hand-written CUDA kernel
-  (``csrc/verify_cold.cu``) for CUDA tensors and takes the plain version
-  only for CPU tensors. ``verify_kernel.launches`` counts kernel launches.
+* K1, :func:`verify_kernel`, the cold path, on (A, R, s, h): the device
+  bit is ``decompress_ok(A) AND encode(s*B + h*(-A)) == R`` bytewise;
+* K2, :func:`verify_kernel_hot`, the hot-signer path, on (table of -A,
+  R, s, h), the table being the signer-table cache's 128 affine cached
+  multiples of -A: the bit is ``encode(s*B + h*(-A)) == R``, with no
+  decompression (cache membership is its proof).
+
+Both hold for every 32-byte pattern of each scalar operand; the host's
+policy gate (canonical s and A, small-order R and A, lengths) is ANDed in
+afterwards.
+
+* ``*_plain`` are the plain PyTorch versions, op for op the JAX
+  functions, so their limbs and bits match the reference exactly.
+* :func:`verify_kernel` and :func:`verify_kernel_hot` launch the
+  hand-written CUDA kernels (``csrc/verify_cold.cu``,
+  ``csrc/verify_hot.cu``) for CUDA tensors and take the plain versions
+  only for CPU tensors. ``.launches`` on each counts its kernel launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from stellar_tpu_torch.ops import _build
 from stellar_tpu_torch.ops import edwards as ed
+from stellar_tpu_torch.ops import field25519 as fe
 
-__all__ = ["verify_kernel", "verify_kernel_plain", "signed_digits32"]
+__all__ = ["verify_kernel", "verify_kernel_plain", "signed_digits32",
+           "verify_kernel_hot", "verify_kernel_hot_plain",
+           "signed_digits256"]
 
 
 def _signed_window_carry_chain(e, window_bits: int):
@@ -69,17 +80,40 @@ def verify_kernel_plain(a_bytes, r_bytes, s_bytes, h_bytes):
     return ok & ed.compress_equals(rprime, r_bytes)
 
 
-def _check_operands(ops):
-    dev = ops[0].device
-    n = ops[0].shape[0] if ops[0].dim() == 2 else -1
-    for t in ops:
-        if t.device != dev:
-            raise ValueError("verify_kernel operands are on different "
-                             f"devices: {t.device} and {dev}")
-        if t.dtype != torch.uint8 or t.dim() != 2 or t.shape != (n, 32):
-            raise ValueError("verify_kernel takes four (batch, 32) uint8 "
-                             f"tensors; got {tuple(t.shape)} {t.dtype}")
-    return dev
+def signed_digits256(b):
+    """(batch, 32) uint8 little-endian scalars -> (32, batch) int32 signed
+    radix-256 digits, most significant first: the bytes are the windows.
+    Digits lie in [-128, 128), the top digit in [0, 256], for EVERY 256-bit
+    scalar; above 128 only when the top byte is 0x81 or more, or 0x80 with
+    a carry into it."""
+    return _signed_window_carry_chain(b.to(torch.int32).T, 8)
+
+
+def verify_kernel_hot_plain(a_table, r_bytes, s_bytes, h_bytes):
+    """Plain PyTorch K2: a (batch, 128, 3, 20) int16 table of -A and three
+    (batch, 32) uint8 tensors -> (batch,) bool."""
+    tab = a_table.movedim(0, -1)  # (128, 3, 20, batch)
+    rprime = ed.double_scalarmult_hot(signed_digits256(s_bytes),
+                                      signed_digits256(h_bytes), tab)
+    return ed.compress_equals(rprime, r_bytes)
+
+
+_ROW = (torch.uint8, (32,))
+_COLD_SHAPES = (_ROW,) * 4
+_HOT_SHAPES = ((torch.int16, (ed.TABLE_ENTRIES256, ed.AFFINE_COORDS,
+                              fe.NLIMBS)),
+               _ROW, _ROW, _ROW)
+
+
+def _verify(name, wrapper, plain, ops, shapes):
+    dev, n = _build.check_operands(wrapper.__name__, ops, shapes)
+    if dev.type == "cpu":
+        return plain(*ops)
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n:
+        _build.launch(name, ops, out, n)
+        wrapper.launches += 1
+    return out
 
 
 def verify_kernel(a_bytes, r_bytes, s_bytes, h_bytes):
@@ -88,29 +122,21 @@ def verify_kernel(a_bytes, r_bytes, s_bytes, h_bytes):
     CUDA tensors launch ``csrc/verify_cold.cu`` on the current stream (no
     synchronise); CPU tensors run :func:`verify_kernel_plain`; any other
     device raises. A build or launch failure raises — nothing falls back."""
-    ops = (a_bytes, r_bytes, s_bytes, h_bytes)
-    dev = _check_operands(ops)
-    if dev.type == "cpu":
-        return verify_kernel_plain(*ops)
-    if dev.type != "cuda":
-        raise ValueError(f"verify_kernel: unsupported device {dev}")
-    from stellar_tpu_torch.ops import _build
-    lib = _build.verify_cold_library(dev)
-    ops = tuple(t.contiguous() for t in ops)
-    n = ops[0].shape[0]
-    out = torch.empty((n,), dtype=torch.bool, device=dev)
-    if n == 0:
-        return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.verify_cold_launch(
-        *(ctypes.c_void_p(t.data_ptr()) for t in ops),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_int(n),
-        ctypes.c_int(dev.index), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"verify_cold launch failed: CUDA error {err} "
-                           f"({_build.cuda_error_string(lib, err)})")
-    verify_kernel.launches += 1
-    return out
+    return _verify("verify_cold", verify_kernel, verify_kernel_plain,
+                   (a_bytes, r_bytes, s_bytes, h_bytes), _COLD_SHAPES)
+
+
+def verify_kernel_hot(a_table, r_bytes, s_bytes, h_bytes):
+    """K2: (batch, 128, 3, 20) int16 table of -A, (batch, 32) uint8 R, s,
+    h -> (batch,) bool.
+
+    CUDA tensors launch ``csrc/verify_hot.cu`` on the current stream (no
+    synchronise); CPU tensors run :func:`verify_kernel_hot_plain`; any
+    other device raises. A build or launch failure raises — nothing falls
+    back."""
+    return _verify("verify_hot", verify_kernel_hot, verify_kernel_hot_plain,
+                   (a_table, r_bytes, s_bytes, h_bytes), _HOT_SHAPES)
 
 
 verify_kernel.launches = 0
+verify_kernel_hot.launches = 0

@@ -5,11 +5,13 @@ It keeps the reference's plugin contract and the chunk-by-top-bucket loop
 of ``submit``: a batch is split into chunks of at most the top bucket, each
 chunk is encoded on the host, padded to the smallest bucket that holds it,
 copied to the device and handed to the plugin's kernel; a chunk whose gate
-is all False skips the device. On CUDA the encoded rows go through pinned
-host tensors and a ``non_blocking`` copy, the kernel launches on the
-current stream, the result bits come back the same way and a
-``torch.cuda.Event`` marks them; ``submit`` returns a resolver that waits on
-the events. A build or launch failure reaches the caller as an exception.
+is all False skips the device. ``submit(items, variant=...)`` runs another
+plugin, a different kernel over the same result rows (the hot-signer
+path), over the same bucket ladder. On CUDA the encoded rows go through
+pinned host tensors and a ``non_blocking`` copy, the kernel launches on
+the current stream, the result rows come back the same way and a
+``torch.cuda.Event`` marks them; ``submit`` returns a resolver that waits
+on the events. A build or launch failure reaches the caller as an exception.
 
 Not in this slice (see ROADMAP.md): breakers, the sampled audit, host
 failover, per-device sub-chunks and tracing spans.
@@ -18,7 +20,7 @@ failover, per-device sub-chunks and tracing spans.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +42,13 @@ class Workload:
       bucket and on the engine's device, and returns ONE tensor, batch
       axis leading;
     * ``finalize`` composes the caller-visible result from the gate and
-      the device rows.
+      the device rows;
+    * ``variant_name`` names a plugin passed as ``variant=`` to
+      :meth:`BatchEngine.submit`: the engine counts the rows it serves
+      under that key of ``served``.
     """
+
+    variant_name = None
 
     def encode(self, items: Sequence) -> Tuple[np.ndarray, tuple]:
         """Host prep: ``items`` -> ``(gate, arrays)``; ``gate`` is True
@@ -81,8 +88,12 @@ class BatchEngine:
         self._plugin = plugin
         self._buckets = buckets
         self.device = resolve_device(device)
-        #: rows (padding excluded) whose result came from the device kernel
-        self.served = {"device": 0}
+        #: "device": rows (padding excluded) of the chunks launched on the
+        #: device, whichever plugin ran them; a variant's name: the rows
+        #: that variant's kernel ran, of those; "host": rows whose gate was
+        #: False, so the host decided them (the verifier's rejections, the
+        #: hasher's oversize messages)
+        self.served = {"device": 0, "host": 0}
 
     def _bucket(self, n: int) -> int:
         for b in self._buckets:
@@ -90,14 +101,14 @@ class BatchEngine:
                 return b
         raise ValueError(f"chunk of {n} rows exceeds the top bucket")
 
-    def _launch(self, encoded: tuple, n: int):
+    def _launch(self, plugin: Workload, encoded: tuple, n: int):
         """Pad one chunk to its bucket, copy it to the device, launch the
-        kernel and start the copy of the result back. Returns
+        plugin's kernel and start the copy of the result back. Returns
         ``(host_result, event)``; ``event`` is None on the CPU."""
         bucket = self._bucket(n)
         cuda = self.device.type == "cuda"
         dev_ops = []
-        for arr, pad in zip(encoded, self._plugin.pad_rows()):
+        for arr, pad in zip(encoded, plugin.pad_rows()):
             dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
             host = torch.empty((bucket,) + arr.shape[1:], dtype=dtype,
                                pin_memory=cuda)
@@ -105,8 +116,11 @@ class BatchEngine:
             hv[:n] = arr
             hv[n:] = pad
             dev_ops.append(host.to(self.device, non_blocking=True))
-        out_dev = self._plugin.kernel_fn()(*dev_ops)
+        out_dev = plugin.kernel_fn()(*dev_ops)
         self.served["device"] += n
+        if plugin is not self._plugin:
+            self.served[plugin.variant_name] = \
+                self.served.get(plugin.variant_name, 0) + n
         if not cuda:
             return out_dev, None
         out_host = torch.empty(out_dev.shape, dtype=out_dev.dtype,
@@ -116,11 +130,14 @@ class BatchEngine:
         event.record(torch.cuda.current_stream(self.device))
         return out_host, event
 
-    def submit(self, items: Sequence) -> Callable[[], np.ndarray]:
+    def submit(self, items: Sequence,
+               variant: Optional[Workload] = None
+               ) -> Callable[[], np.ndarray]:
         """Host prep and non-blocking device dispatch, chunk by top
         bucket. Returns a zero-argument resolver that waits for the device
-        and returns the per-item results."""
-        plugin = self._plugin
+        and returns the per-item results. ``variant`` replaces the
+        engine's plugin for this call."""
+        plugin = self._plugin if variant is None else variant
         items = list(items)
         n = len(items)
         if n == 0:
@@ -133,7 +150,8 @@ class BatchEngine:
             for start in range(0, n, top):
                 chunk = items[start:start + top]
                 gate, encoded = plugin.encode(chunk)
-                launched = (self._launch(encoded, len(chunk))
+                self.served["host"] += int((~gate).sum())
+                launched = (self._launch(plugin, encoded, len(chunk))
                             if gate.any() else None)
                 pending.append((chunk, gate, launched))
 

@@ -1,10 +1,13 @@
-"""K1 on the card: the hand-written CUDA kernel against its plain PyTorch
-version on the same CUDA tensors, bit for bit (integer arithmetic,
-tolerance zero), and the batch verifier's main path through the kernel.
+"""K1, K2 and K3 on the card: each hand-written CUDA kernel against its
+plain PyTorch version on the same CUDA tensors, bit for bit and word for
+word (integer arithmetic, tolerance zero), and the batch verifier's and
+hasher's main paths through the kernels.
 
 Every test needs a CUDA card and skips inside the test when there is
 none; on the card run ``python -m pytest -m gpu tests/test_torch_cuda.py``.
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -12,10 +15,13 @@ import torch
 
 from stellar_tpu_torch.crypto import ed25519_ref as ref
 from stellar_tpu_torch.crypto import vectors
+from stellar_tpu_torch.crypto.batch_hasher import BatchHasher
 from stellar_tpu_torch.crypto.batch_verifier import (BatchVerifier,
                                                      Ed25519Workload)
 from stellar_tpu_torch.ops import _build
+from stellar_tpu_torch.ops import sha256 as tsk
 from stellar_tpu_torch.ops import verify as tvk
+from stellar_tpu_torch.parallel import signer_tables as st
 
 pytestmark = pytest.mark.gpu
 
@@ -77,15 +83,96 @@ def test_kernel_rejects_bad_operands(card):
         tvk.verify_kernel(ok, ok, ok, ok.to(torch.int32))
     with pytest.raises(ValueError):
         tvk.verify_kernel(ok, ok, ok, ok.cpu())
-    assert "registers" in _build.build_log(_build.verify_cold_path())
+    assert "registers" in _build.build_log(_build.library_path("verify_cold"))
 
 
 def test_batch_verifier_main_path_on_card(card):
     rng = np.random.default_rng(63)
     items = vectors.valid_items(rng, 40) + vectors.edge_corpus(rng)
-    v = BatchVerifier(bucket_sizes=(16, 128))
-    before = tvk.verify_kernel.launches
-    got = v.verify_batch(items)
+    st.signer_table_cache.configure(enabled=False)
+    try:
+        v = BatchVerifier(bucket_sizes=(16, 128))
+        before = tvk.verify_kernel.launches
+        got = v.verify_batch(items)
+    finally:
+        st.signer_table_cache._reset_for_testing()
     assert tvk.verify_kernel.launches > before
     assert got.tolist() == [ref.verify(*it) for it in items]
     assert v.served["device"] == len(items)
+
+
+def _hot_rows(rng, n):
+    """n hot rows: 24 matching rows (top digits saturating), then their
+    tables again under random R, s and h."""
+    match = vectors.hot_matching_rows(rng, 24)
+    parts = [match]
+    have = 24
+    while have < n:
+        k = min(24, n - have)
+        rand = vectors.random_rows(rng, k)
+        parts.append((match[0][:k],) + rand[1:])
+        have += k
+    return tuple(np.ascontiguousarray(np.concatenate([p[k] for p in parts])
+                                      [:n]) for k in range(4))
+
+
+@pytest.mark.parametrize("batch", [128, 2048])
+def test_hot_kernel_matches_plain_at_bucket(card, batch):
+    rows = _hot_rows(np.random.default_rng(64), batch)
+    ops = tuple(torch.from_numpy(x).to(card) for x in rows)
+    before = tvk.verify_kernel_hot.launches
+    got = tvk.verify_kernel_hot(*ops)
+    torch.cuda.synchronize(card)
+    assert tvk.verify_kernel_hot.launches == before + 1
+    want = tvk.verify_kernel_hot_plain(*ops)
+    assert torch.equal(got, want), torch.nonzero(got != want).flatten()
+    assert got[:24].all() and not got[24:].all()
+    assert "registers" in _build.build_log(_build.library_path("verify_hot"))
+
+
+def test_hot_main_path_on_card(card):
+    """Repeat signers ride K2; verdicts equal the oracle."""
+    rng = np.random.default_rng(65)
+    items = vectors.valid_items(rng, 8) + vectors.edge_corpus(rng)
+    st.signer_table_cache._reset_for_testing()
+    st.signer_table_cache.configure(enabled=True)
+    try:
+        v = BatchVerifier(bucket_sizes=(16, 128))
+        want = [ref.verify(*it) for it in items]
+        assert v.verify_batch(items).tolist() == want
+        before = tvk.verify_kernel_hot.launches
+        assert v.verify_batch(items).tolist() == want
+        assert tvk.verify_kernel_hot.launches > before
+        assert v.served["hot"] > len(items) // 2
+    finally:
+        st.signer_table_cache._reset_for_testing()
+
+
+def test_sha256_kernel_matches_plain_and_hashlib(card):
+    rng = np.random.default_rng(66)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 504, 2000)]
+    words, active, fits = tsk.pack_messages(msgs, 8)
+    assert fits.all()
+    words = np.concatenate([words, rng.integers(0, 2**32, (48, 8, 16),
+                                                dtype=np.uint32)])
+    active = np.concatenate([active, rng.random((48, 8)) < 0.5])
+    w = torch.from_numpy(words).to(card)
+    a = torch.from_numpy(active).to(card)
+    before = tsk.sha256_kernel.launches
+    got = tsk.sha256_kernel(w, a)
+    torch.cuda.synchronize(card)
+    assert tsk.sha256_kernel.launches == before + 1
+    want = tsk.sha256_kernel_plain(w, a)
+    assert torch.equal(got.cpu(), want.cpu())
+    np.testing.assert_array_equal(got.cpu().numpy()[:2000],
+                                  tsk.host_digest_words(msgs))
+
+
+def test_batch_hasher_main_path_on_card(card):
+    rng = np.random.default_rng(67)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 2000, 600)]
+    h = BatchHasher(bucket_sizes=(128, 512))
+    before = tsk.sha256_kernel.launches
+    assert h.hash_batch(msgs) == [hashlib.sha256(m).digest() for m in msgs]
+    assert tsk.sha256_kernel.launches == before + 2
+    assert h.served["host"] == sum(len(m) > 503 for m in msgs)

@@ -40,21 +40,31 @@ def test_forbidden_imports_absent():
 
 def test_import_and_verify_with_jax_blocked():
     """A fresh interpreter in which importing jax or stellar_tpu fails
-    imports the port and verifies three items on the CPU."""
+    imports the port, verifies three items on the CPU twice (the second
+    time through the hot-signer path) and hashes forty messages."""
     code = "\n".join([
-        "import sys",
+        "import sys, hashlib",
         "sys.modules['jax'] = None",
         "sys.modules['stellar_tpu'] = None",
         "import numpy as np",
         "from stellar_tpu_torch.crypto import ed25519_ref as ref",
         "from stellar_tpu_torch.crypto import vectors",
         "from stellar_tpu_torch.crypto.batch_verifier import BatchVerifier",
+        "from stellar_tpu_torch.crypto.batch_hasher import hash_many",
+        "from stellar_tpu_torch.parallel import signer_tables",
         "import stellar_tpu_torch.state, stellar_tpu_torch.ops._build",
+        "import stellar_tpu_torch.ops.sha256",
         "rng = np.random.default_rng(51)",
         "items = vectors.valid_items(rng, 3)",
         "items[1] = (items[1][0], b'tampered', items[1][2])",
         "v = BatchVerifier(device='cpu', bucket_sizes=(4,))",
+        "assert v.verify_batch(items).tolist() == [True, False, True]",
+        "assert v.served['hot'] == 0",
         "print(v.verify_batch(items).tolist())",
+        "assert v.served['hot'] == 3",
+        "msgs = [bytes([i]) * (13 * i) for i in range(40)]",
+        "assert hash_many(msgs, device='cpu') == "
+        "[hashlib.sha256(m).digest() for m in msgs]",
         "assert not any(m == 'jax' or m.startswith('jax.') or m == "
         "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
         "sys.modules if sys.modules[m] is not None)",

@@ -120,17 +120,20 @@ def test_tables_from_jax_equal_port_tables():
     """The JAX package's constants carried across equal the tables the
     port builds itself, in both layouts, exactly."""
     got = state.tables_from_jax({
-        "_BASE_TABLE32": jed._BASE_TABLE32, "D_LIMBS": jed.D_LIMBS,
+        "_BASE_TABLE32": jed._BASE_TABLE32,
+        "_BASE_TABLE256": jed._BASE_TABLE256, "D_LIMBS": jed.D_LIMBS,
         "D2_LIMBS": jed.D2_LIMBS, "SQRTM1_LIMBS": jed.SQRTM1_LIMBS,
         "_SUB_PAD": jfe._SUB_PAD})
     mine = state.port_tables()
     assert set(got) == set(mine)
     for key in mine:
-        assert got[key].dtype == mine[key].dtype == torch.int32, key
+        want = torch.int16 if key == "base_table256" else torch.int32
+        assert got[key].dtype == mine[key].dtype == want, key
         assert torch.equal(got[key], mine[key]), key
     assert got["kernel_consts"].shape == (3 * 10 + 16 * 3 * 10,)
     with pytest.raises(ValueError):
-        state.tables_from_jax({"_BASE_TABLE32": jed._BASE_TABLE32[:8]})
+        state.tables_from_jax({"_BASE_TABLE32": jed._BASE_TABLE32[:8],
+                               "_BASE_TABLE256": jed._BASE_TABLE256})
 
 
 def test_kernel_consts_are_the_curve_constants():
