@@ -11,10 +11,10 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 
 1. device  — the card's name, count, and ``nvidia-smi``'s name and power
    limit;
-2. build   — K1 (``csrc/verify_cold.cu``), K2 (``csrc/verify_hot.cu``)
-   and K3 (``csrc/sha256.cu``) with nvcc and the SHA-512 prep library with
-   g++, the four builds started together; build seconds, registers and
-   spills;
+2. build   — K1 (``csrc/verify_cold.cu``), K2 (``csrc/verify_hot.cu``),
+   K3 (``csrc/sha256.cu``) and K5 (``csrc/verify_r16.cu``) with nvcc, the
+   SHA-512 prep library and the native host oracle with g++, the six
+   builds started together; build seconds, registers and spills;
 3. kernel against plain — K1 and its plain PyTorch version on the same
    CUDA tensors (edge corpus, good signatures, rows whose device bit is
    True for arbitrary 256-bit scalars, random bytes): equal bits on every
@@ -56,10 +56,43 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    messages; then K3 against its plain version on the call's own rows at
    B = 2,048, and timed; one ``{"kernels": [...]}`` line.
 
-Each kernel's launch count is set to 0 just before its main path runs and
-read just after: K1 over phases 4-5 and again over phases 7-8, K2 over
-phases 7-8, K3 over phase 10's calls. The last line is ``{"ok": true, "device": {...}}``. With no
-card, or outside the repository, it exits non-zero and prints no result.
+11. the radix sweep — K5 (``csrc/verify_r16.cu``, the radix-16 arm) on the
+   main path's own padded rows at B = 2,048 and 16,384, with the edge
+   corpus, radix-16 matching rows, rows whose scalar overflows the top
+   radix-16 window (R = 0 on half of them) and random bytes written over
+   their head; K5 and its plain version give equal bits on every row;
+   then K1 and K5 timed on the same rows, one line with both times and
+   their ratio;
+12. K4 — ``verify_kernel_sharded`` over every visible card, and over the
+   one card named 4 times, at B = 2,048 and 16,384 on phase 6's rows:
+   equal to K1 on every row, and timed;
+13. the split main path — a ``BatchVerifier`` over the card named 4
+   times on the cold TxSet (cache off) and the hot TxSet (cache on, from
+   empty): verdicts equal to the oracle, every index serves, p50 and p90
+   beside the one-device ones;
+14. the audit's cost — the cold TxSet p50 at the reference's audit rate
+   0.02 (the rate every main-path phase runs at) and at 0, in turns, the
+   host oracle's backend (native libcrypto or pure Python), and its cost
+   part by part (policy gate, native batch at its own thread count and
+   on one thread) for a TxSet's and a catchup call's audit;
+15. fault domains, last — on the 4-index verifier: ``fail-device`` on
+   index 1 quarantines only index 1 and its parts move to the survivors;
+   after the backoff one probation sub-chunk heals it; ``corrupt-device``
+   on index 2 is caught by the audit, which quarantines 2 for good and
+   moves its parts; every verdict equals the oracle and every row is
+   served by a card; then a launch fault on every index, and on a
+   one-card verifier, raises.
+
+Each kernel's launch count is set to 0 just before its path runs and read
+just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
+7-8, K3 over phase 10's calls, K5 over phase 11's sweep calls, K4 over
+phase 12's calls, K1 and K2 again over phase 13. After every main-path
+phase the dispatch must be clean: no device fault (no retry, every
+breaker closed and never opened), no audit mismatch, no conviction;
+only phase 15 expects otherwise. The engine has no host failover, so no
+row of a card is ever served by the host. The last line is
+``{"ok": true, "device": {...}}``. With no card, or outside the
+repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -80,16 +113,20 @@ try:
     import torch
 
     from stellar_tpu_torch.crypto import ed25519_ref as ref
-    from stellar_tpu_torch.crypto import native_prep, vectors
+    from stellar_tpu_torch.crypto import native_prep, native_verify, vectors
     from stellar_tpu_torch.crypto.batch_hasher import (MAX_BLOCKS,
                                                        default_hasher)
     from stellar_tpu_torch.crypto.batch_verifier import (
-        Ed25519HotWorkload, Ed25519Workload, default_verifier)
+        BatchVerifier, Ed25519HotWorkload, Ed25519Workload,
+        default_verifier)
     from stellar_tpu_torch.ops import _build
     from stellar_tpu_torch.ops import sha256 as sk
     from stellar_tpu_torch.ops import verify as vk
+    from stellar_tpu_torch.parallel import batch_engine, mesh
+    from stellar_tpu_torch.parallel.batch_engine import DEFAULT_BUCKET_SIZES
     from stellar_tpu_torch.parallel.signer_tables import (
         TABLE_ENTRIES, build_signer_table, signer_table_cache)
+    from stellar_tpu_torch.utils import faults, resilience
     from stellar_tpu_torch.utils.device import resolve_device
 except ImportError as e:  # run outside the repository
     _IMPORT_ERROR = e
@@ -151,6 +188,23 @@ _ENCODE = (_INVERT[0], _INVERT[1] + 2)
 # K2 (csrc/verify_hot.cuh): 31 windows of 8 doublings, 4 sq each, with 3
 # muls to projective after 7 of them and 4 to extended after the 8th
 _HOT_DOUBLINGS = (31 * 8 * 4, 31 * (7 * 3 + 4))
+# K5 (csrc/verify_r16.cu): the A-table, 1 doubling (4 sq, 4 mul to
+# extended), 6 cached adds (4 mul + 4 to extended), 8 to-cached (1 mul);
+# 63 windows of 4 doublings, 3 muls to projective after 3 of them and 4 to
+# extended after the 4th; a mixed B add (3 mul + 4) per nonzero digit of
+# s, a cached A add (4 mul + 4) per nonzero digit of h, a top digit above
+# 8 included (it adds the zero entry)
+_TABLE16 = (4, 4 + 6 * 8 + 8)
+_R16_DOUBLINGS = (63 * 4 * 4, 63 * (3 * 3 + 4))
+_R16_ADD_MULS_A = 8
+# the split phases' device list: the one card named this many times
+SPLIT = 4
+# phase 15's per-device backoff: far longer than a TxSet call (tens of
+# ms), so the degraded call finds index 1 still open
+FAULT_BACKOFF_S = 1.0
+# phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
+# and by one catchup call's
+AUDIT_ROWS = (40, 320)
 
 
 class PhaseFailed(Exception):
@@ -231,6 +285,20 @@ def hot_kernel_multiplies(s_bytes, h_bytes) -> int:
             + nonzero * _ADD_MULS * FE_MUL_MACS)
 
 
+def r16_kernel_multiplies(s_bytes, h_bytes) -> int:
+    """32x32->64 multiply-adds that K5 executes for these rows: the fixed
+    decompress, table, doublings and encode, and one add for each nonzero
+    radix-16 digit (7 multiplies for s, 8 for h). (batch, 32) uint8 CPU
+    tensors in, a Python int out."""
+    nz_s = int((vk.signed_digits16(s_bytes) != 0).sum())
+    nz_h = int((vk.signed_digits16(h_bytes) != 0).sum())
+    fixed = [_DECOMPRESS, _TABLE16, _R16_DOUBLINGS, _ENCODE]
+    sq = sum(f[0] for f in fixed)
+    mul = sum(f[1] for f in fixed)
+    return (s_bytes.shape[0] * (sq * FE_SQ_MACS + mul * FE_MUL_MACS)
+            + (nz_s * _ADD_MULS + nz_h * _R16_ADD_MULS_A) * FE_MUL_MACS)
+
+
 def bound(info, ops, ops_per_clock_per_sm, nbytes):
     """(least ms, what bounds it): the larger of the operations over the
     card's rate and the bytes over its memory rate."""
@@ -297,17 +365,20 @@ def phase_device():
 
 
 def phase_build(dev):
-    """K1, K2 and K3 with nvcc and the prep library with g++, all four
-    builds started together."""
+    """K1, K2, K3 and K5 with nvcc, the prep library and the host oracle
+    with g++, all six builds started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(_build.LIBRARIES) + 1) as pool:
+    with ThreadPoolExecutor(max_workers=len(_build.LIBRARIES) + 2) as pool:
         jobs = [pool.submit(_build.library, name, dev)
                 for name in _build.LIBRARIES]
         jobs.append(pool.submit(native_prep._load))
+        jobs.append(pool.submit(native_verify._load))
         for job in jobs:
             job.result()
     secs = time.perf_counter() - t0
-    print(f"[build] K1, K2, K3 and the prep library built in {secs:.1f} s")
+    print(f"[build] K1, K2, K3, K5, the prep library and the host oracle "
+          f"built in {secs:.1f} s; host oracle backend "
+          f"{native_verify.backend()}")
     for name in _build.LIBRARIES:
         log = _build.build_log(_build.library_path(name))
         for ln in log.splitlines():
@@ -487,14 +558,15 @@ def k1_against_plain(info, ops, label):
 
 def phase_kernel_times(dev, rng, info, main_items):
     """K1 against its plain version, and both timed, at each bucket of the
-    main path on rows built from that call's items."""
-    per_batch, compared, err = {}, 0, 0.0
+    main path on rows built from that call's items. Returns the operands
+    too (bucket -> CUDA tensors), for phase 12."""
+    per_batch, compared, err, all_ops = {}, 0, 0.0, {}
     for b in KERNEL_BATCHES:
-        ops = rows_to(dev, main_path_rows(rng, main_items[b], b))
+        ops = all_ops[b] = rows_to(dev, main_path_rows(rng, main_items[b], b))
         per_batch[str(b)], e = k1_against_plain(info, ops, f"B={b}")
         compared += b
         err = max(err, e)
-    return per_batch, compared, err
+    return per_batch, compared, err, all_ops
 
 
 @contextlib.contextmanager
@@ -799,8 +871,368 @@ def phase_hashing(dev, rng, info):
     return res
 
 
+def check_dispatch_clean(engines, label):
+    """After a main-path phase: no device fault (no launch retried, every
+    breaker closed and never opened), no audit mismatch, no device
+    convicted. The engine has no host failover (a fault moves a part to
+    another device or raises), so every row was served by a card or
+    decided by the host gate. Returns the parts audited clean."""
+    audited = 0
+    for eng in engines:
+        snap = eng.health.snapshot()
+        check(eng.audit_mismatches == 0 and not eng.convicted,
+              f"{label}: audit mismatch, convicted {sorted(eng.convicted)}")
+        faulted = {i: d for i, d in snap["devices"].items()
+                   if d["state"] != resilience.CLOSED or d["opened_total"]
+                   or d["consecutive_failures"]}
+        check(not faulted and eng.retries == 0,
+              f"{label}: a device faulted: {faulted}, {eng.retries} "
+              "launches retried")
+        audited += sum(t["ok"] for t in snap["audits"].values())
+    return audited
+
+
+def sweep_rows(rng, items, b):
+    """Phase 11's rows: the main path's ``b`` padded rows with the edge
+    corpus, 64 radix-16 matching rows, 64 overflow rows (top digit above
+    8; R = 0 on even ones) and 256 random rows written over their head."""
+    rows = list(main_path_rows(rng, items, b))
+    _, edge = Ed25519Workload().encode(vectors.edge_corpus(rng))
+    head = [np.concatenate(parts) for parts in zip(
+        edge, vectors.r16_matching_rows(rng, 64),
+        vectors.r16_overflow_rows(rng, 64), vectors.random_rows(rng, 256))]
+    for k in range(4):
+        rows[k][:len(head[k])] = head[k]
+    return tuple(rows), len(edge[0])
+
+
+def phase_radix_sweep(dev, rng, info, main_items):
+    """K5 on the main path's rows at each bucket (the sweep's calls, the
+    launches counted), then K5 against its plain version, K5 and K1 timed
+    on the same rows, and the ratio."""
+    all_ops, n_edge = {}, 0
+    for b in KERNEL_BATCHES:
+        rows, n_edge = sweep_rows(rng, main_items[b], b)
+        all_ops[b] = rows_to(dev, rows)
+    vk.verify_kernel_r16.launches = 0
+    swept = {b: vk.verify_kernel_r16(*ops) for b, ops in all_ops.items()}
+    torch.cuda.synchronize()
+    launches = vk.verify_kernel_r16.launches
+    check(launches == len(KERNEL_BATCHES), f"the sweep launched K5 "
+          f"{launches} times, not {len(KERNEL_BATCHES)}")
+    per_batch, compared, err = {}, 0, 0.0
+    for b, ops in all_ops.items():
+        got = swept[b]
+        want = vk.verify_kernel_r16_plain(*ops)
+        k1_bits = vk.verify_kernel(*ops)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        check(bad == 0, f"B={b}: K5 and plain differ on {bad} rows")
+        head = got[n_edge:n_edge + 128].tolist()
+        check(head == [True] * 64 + [True, False] * 32,
+              f"B={b}: K5 misses the matching or overflow rows")
+        s_cpu, h_cpu = ops[2].cpu(), ops[3].cpu()
+        top = torch.stack([vk.signed_digits16(s_cpu)[0],
+                           vk.signed_digits16(h_cpu)[0]])
+        overflow = int((top > 8).any(0).sum())
+        differ_k1 = int((got != k1_bits).sum())
+        compared += b
+        err = max(err, float((got.int() - want.int()).abs().max()))
+        ms = _event_ms(lambda: vk.verify_kernel_r16(*ops), KERNEL_REPS)
+        k1_ms = _event_ms(lambda: vk.verify_kernel(*ops), KERNEL_REPS)
+        plain_ms = _event_ms(lambda: vk.verify_kernel_r16_plain(*ops), 1)
+        macs = r16_kernel_multiplies(s_cpu, h_cpu)
+        bound_ms, bound_by = bound(info, macs, IMAD_PER_CLOCK_PER_SM,
+                                   b * ROW_BYTES)
+        per_batch[str(b)] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "multiply_adds": macs,
+            "rows_true": int(got.sum()), "rows_overflow": overflow,
+            "rows_differing_from_k1": differ_k1, "k1_ms": k1_ms,
+            "k5_over_k1": ms / k1_ms}
+        print(f"[radix-sweep] B={b}: K5 = plain on every row ({overflow} "
+              f"rows with a top radix-16 digit above 8; {differ_k1} rows "
+              f"whose bit differs from K1's, all of them overflow rows); "
+              f"K5 {ms:.4f} ms, K1 {k1_ms:.4f} ms on the same rows, "
+              f"K5/K1 {ms / k1_ms:.3f}; plain {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {macs} 32x32->64 "
+              "multiply-adds)")
+        check(differ_k1 <= overflow, f"B={b}: K5 and K1 differ on rows "
+              "that do not overflow")
+    return per_batch, compared, err, launches
+
+
+def phase_sharded(dev, k1_ops, k1_times):
+    """K4 over every visible card (at B = 2,048) and over the card named
+    SPLIT times (at each bucket), on phase 6's rows: the calls counted,
+    then equal to K1 on every row, and timed beside K1."""
+    cards = mesh.batch_devices()
+    layouts = [("every card", cards, KERNEL_BATCHES[0])] + [
+        (f"card x {SPLIT}", [dev] * SPLIT, b) for b in KERNEL_BATCHES]
+    layouts = [(label, devs, b) for label, devs, b in layouts
+               if b % len(devs) == 0]
+    vk.verify_kernel_sharded.launches = 0
+    outs = [vk.verify_kernel_sharded(devs)(*k1_ops[b])
+            for _label, devs, b in layouts]
+    torch.cuda.synchronize()
+    launches = vk.verify_kernel_sharded.launches
+    check(launches == len(layouts), f"K4 counted {launches} calls, not "
+          f"{len(layouts)}")
+    per_batch, compared = {}, 0
+    for (label, devs, b), got in zip(layouts, outs):
+        ops = k1_ops[b]
+        want = vk.verify_kernel(*ops)
+        torch.cuda.synchronize()
+        bad = int((got.to(want.device) != want).sum())
+        check(bad == 0, f"K4 over {label} differs from K1 on {bad} rows "
+              f"at B={b}")
+        compared += b
+        fn = vk.verify_kernel_sharded(devs)
+        ms = _event_ms(lambda: fn(*ops), KERNEL_REPS)
+        k1 = k1_times[str(b)]
+        key = f"{label}:{b}"
+        per_batch[key] = {
+            "ms": ms, "k1_ms": k1["ms"], "plain_ms": k1["plain_ms"],
+            "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+            "devices": len(devs), "rows_true": int(got.sum())}
+        print(f"[sharded] {key}: K4 over {len(devs)} device entries = K1 "
+              f"on every row; K4 {ms:.4f} ms, K1 {k1['ms']:.4f} ms "
+              f"(one launch), bound {k1['bound_ms']:.4f} ms")
+    return per_batch, compared, launches
+
+
+def phase_split(dev, txset_items, txset_want):
+    """The TxSet on a verifier over the card named SPLIT times: cold
+    (cache off) and hot (cache on, from empty); every index serves,
+    verdicts equal the oracle, nothing fails over."""
+    v = BatchVerifier(devices=[dev] * SPLIT,
+                      bucket_sizes=DEFAULT_BUCKET_SIZES)
+    res = {}
+    vk.verify_kernel.launches = 0
+    vk.verify_kernel_hot.launches = 0
+    for mode in ("cold", "hot"):
+        signer_table_cache._reset_for_testing()
+        signer_table_cache.configure(enabled=mode == "hot")
+        t = time.perf_counter()
+        got = v.verify_batch(txset_items)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        check(np.array_equal(got, txset_want), f"split {mode} TxSet: "
+              "first call differs from the oracle")
+        served0 = dict(v.device_served)
+        hot0 = v.served["hot"]
+        times = []
+        for _ in range(TIMED_CALLS):
+            t = time.perf_counter()
+            out = v.verify_batch(txset_items)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            check(np.array_equal(out, txset_want), f"split {mode} TxSet: "
+                  "a timed call differs from the oracle")
+        per_index = {i: v.device_served.get(i, 0) - served0.get(i, 0)
+                     for i in range(SPLIT)}
+        check(all(n > 0 for n in per_index.values()),
+              f"split {mode} TxSet: an index served nothing: {per_index}")
+        hot_rows = (v.served["hot"] - hot0) // TIMED_CALLS
+        check(hot_rows == (cacheable_rows(txset_items) if mode == "hot"
+                           else 0), f"split {mode} TxSet: {hot_rows} rows "
+              "hot a call")
+        res[mode] = {"first_ms": first_ms,
+                     "p50_ms": float(np.percentile(times, 50)),
+                     "p90_ms": float(np.percentile(times, 90)),
+                     "hot_rows_per_call": hot_rows,
+                     "rows_per_index_per_call": {
+                         str(i): n // TIMED_CALLS
+                         for i, n in per_index.items()}}
+    k1, k2 = vk.verify_kernel.launches, vk.verify_kernel_hot.launches
+    check(k1 > 0 and k2 > 0, f"the split path launched K1 {k1} and K2 {k2} "
+          "times")
+    res["launches"] = {"verify_cold": k1, "verify_hot": k2}
+    audited = check_dispatch_clean([v], "split TxSet")
+    signer_table_cache._reset_for_testing()
+    print(f"[split] TxSet on {SPLIT} indices of one card: cold p50 "
+          f"{res['cold']['p50_ms']:.3f} ms, p90 {res['cold']['p90_ms']:.3f} "
+          f"ms; hot p50 {res['hot']['p50_ms']:.3f} ms, p90 "
+          f"{res['hot']['p90_ms']:.3f} ms (first call "
+          f"{res['hot']['first_ms']:.1f} ms); rows per index per call "
+          f"{res['cold']['rows_per_index_per_call']}; K1 {k1} and K2 {k2} "
+          f"launches; no device fault, {audited} parts audited clean")
+    return res, v
+
+
+def _host_oracle_parts(items):
+    """The host oracle's cost, part by part, on the first gate-passing
+    rows of ``items``: the policy gate, then the native batch at the
+    thread count it picks and on one thread, for an audit of each of
+    ``AUDIT_ROWS``. Median of 20 calls each, ms."""
+    def med(fn):
+        ts = []
+        for _ in range(20):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(ts))
+
+    passing = [it for it in items if ref._policy_gate(it[0], it[2])]
+    out = {}
+    for n in AUDIT_ROWS:
+        rows = passing[:n]
+        cols = [list(c) for c in zip(*rows)]
+        rec = {"rows": len(rows),
+               "gate_ms": med(lambda: [ref._policy_gate(pk, sig)
+                                       for pk, _m, sig in rows]),
+               "host_verify_ms": med(lambda: native_verify.host_verify(
+                   rows))}
+        if native_verify.available():
+            # the C++ batch runs min(8, ceil(n / 32)) threads
+            rec["threads"] = 1 if len(rows) < 32 else \
+                min(8, -(-len(rows) // 32))
+            rec["eq_ms"] = med(lambda: native_verify.verify_eq_batch(*cols))
+            rec["eq_1_thread_ms"] = med(
+                lambda: native_verify.verify_eq_batch(*cols, nthreads=1))
+            rec["us_per_verify_1_thread"] = \
+                rec["eq_1_thread_ms"] * 1e3 / len(rows)
+            # the same rows as 8 slices on 8 Python threads (each slice
+            # runs one C++ thread; ctypes drops the GIL): does the oracle
+            # scale over threads at a TxSet audit's size?
+            k = -(-len(rows) // 8)
+            slices = [[c[i:i + k] for c in cols]
+                      for i in range(0, len(rows), k)]
+            with ThreadPoolExecutor(8) as pool:
+                rec["eq_8_slices_ms"] = med(lambda: list(pool.map(
+                    lambda sl: native_verify.verify_eq_batch(*sl), slices)))
+        out[str(n)] = rec
+    return out
+
+
+def phase_audit_cost(items, want):
+    """The cold TxSet on the default verifier at the audit rate 0.02 and
+    at 0, in turns (0.02, 0, 0, 0.02), 10 calls each, and the host
+    oracle's cost part by part."""
+    signer_table_cache.configure(enabled=False)
+    v = default_verifier()
+    rate0 = batch_engine.AUDIT_RATE
+    times = {0.02: [], 0.0: []}
+    try:
+        for rate in (0.02, 0.0, 0.0, 0.02):
+            batch_engine.configure_dispatch(audit_rate=rate)
+            for _ in range(TIMED_CALLS // 2):
+                t = time.perf_counter()
+                out = v.verify_batch(items)
+                torch.cuda.synchronize()
+                times[rate].append((time.perf_counter() - t) * 1e3)
+                check(np.array_equal(out, want), "audit-cost TxSet call "
+                      "differs from the oracle")
+    finally:
+        batch_engine.configure_dispatch(audit_rate=rate0)
+    check_dispatch_clean([v], "audit cost")
+    res = {"backend": native_verify.backend(),
+           "p50_ms_rate_0.02": float(np.percentile(times[0.02], 50)),
+           "p50_ms_rate_0": float(np.percentile(times[0.0], 50)),
+           "host_oracle": _host_oracle_parts(items)}
+    print(f"[audit] cold TxSet p50 at audit rate 0.02 "
+          f"{res['p50_ms_rate_0.02']:.3f} ms, at 0 "
+          f"{res['p50_ms_rate_0']:.3f} ms ({TIMED_CALLS} calls each, in "
+          f"turns; the sample's host verdicts are computed at dispatch, "
+          f"while the card works); host oracle backend {res['backend']}; "
+          f"its parts: {json.dumps(res['host_oracle'])}")
+    return res
+
+
+def phase_faults(v, items, want):
+    """The reference's device-domain scenarios on the SPLIT-index
+    verifier, cache off: fail-device 1, probation healing, corrupt-device
+    2; every verdict equals the oracle and every row is served by a
+    device index. Then the port's own: a launch fault on every index, and
+    on a one-card verifier, raises instead of serving rows on the host.
+    The verifiers are the phase's own and are dropped after it."""
+    signer_table_cache.configure(enabled=False)
+    health = v.health
+    health.configure(failure_threshold=2, backoff_min_s=FAULT_BACKOFF_S,
+                     backoff_max_s=2 * FAULT_BACKOFF_S)
+    retries0 = batch_engine.DISPATCH_RETRIES
+    batch_engine.DISPATCH_RETRIES = 0
+    out = {}
+
+    def call(label):
+        served0 = dict(v.device_served)
+        dev0 = v.served["device"]
+        got = v.verify_batch(items)
+        torch.cuda.synchronize()
+        check(np.array_equal(got, want), f"faults, {label}: a verdict "
+              "differs from the oracle")
+        out[label] = {
+            "served": {str(i): v.device_served.get(i, 0) - served0.get(i, 0)
+                       for i in range(SPLIT)},
+            "device_rows": v.served["device"] - dev0,
+            "quarantined": health.quarantined(SPLIT),
+            "convicted": sorted(v.convicted)}
+        check(out[label]["device_rows"] == len(items),
+              f"faults, {label}: {out[label]['device_rows']} of "
+              f"{len(items)} rows served by a device")
+        return out[label]
+
+    def raises(label, verifier):
+        try:
+            verifier.verify_batch(items)
+        except RuntimeError as e:
+            out[label] = {"raised": str(e)[:160]}
+            return
+        check(False, f"faults, {label}: the call did not raise")
+
+    try:
+        faults.set_fault(faults.DISPATCH, "fail-device", 1)
+        rec = call("fail_device_1")
+        check(rec["served"]["1"] == 0 and rec["quarantined"] == [],
+              f"fail-device 1, first call: {rec}")
+        rec = call("fail_device_1_again")
+        opened = time.monotonic()
+        check(rec["quarantined"] == [1], f"fail-device 1 quarantined "
+              f"{rec['quarantined']}")
+        rec = call("degraded")
+        check(rec["served"]["1"] == 0 and
+              all(rec["served"][str(i)] > 0 for i in (0, 2, 3)),
+              f"degraded: the survivors did not serve alone: {rec}")
+        faults.clear()
+        time.sleep(max(0.0, opened + 1.2 * FAULT_BACKOFF_S
+                       - time.monotonic()))
+        call("probation")
+        check(health.breaker(1).state == resilience.CLOSED,
+              "probation did not heal index 1")
+        rec = call("healed")
+        check(rec["served"]["1"] > 0 and rec["quarantined"] == [],
+              f"healed: index 1 does not serve: {rec}")
+        faults.set_fault(faults.RESOLVE, "corrupt-device", 2)
+        mism = v.audit_mismatches
+        rec = call("corrupt_device_2")
+        check(v.audit_mismatches == mism + 1 and rec["quarantined"] == [2]
+              and rec["convicted"] == [2] and rec["served"]["2"] == 0,
+              f"corrupt-device 2 not convicted: {rec}")
+        faults.clear()
+        time.sleep(1.2 * FAULT_BACKOFF_S)
+        rec = call("convicted")
+        check(rec["served"]["2"] == 0 and rec["quarantined"] == [2],
+              f"convicted index 2 served again: {rec}")
+        faults.set_fault(faults.DISPATCH, "raise")
+        raises("every_index_fails", v)
+        raises("one_card_fails", BatchVerifier(
+            device=v.device, bucket_sizes=DEFAULT_BUCKET_SIZES))
+    finally:
+        faults.clear()
+        batch_engine.DISPATCH_RETRIES = retries0
+    print("[faults] " + "; ".join(f"{k}: {r}" for k, r in out.items()))
+    print("[faults] fail-device 1 benched index 1 alone (its parts moved "
+          "to the survivors), probation healed it, corrupt-device 2 was "
+          "convicted by the audit (index 2 quarantined for good, its parts "
+          "moved), every verdict equal to the oracle and every row served "
+          "by a card; a launch fault with no device left raised")
+    return out
+
+
 def kernel_entry(name, source, replaces, jax_function, launches,
                  rows_compared, err, per_batch, batch, card, **extra):
+    """One entry of the kernels line; ``batch`` keys its headline numbers
+    in ``per_batch``."""
     main = per_batch[str(batch)]
     return {
         "name": name, "route": "cuda", "source": source,
@@ -824,31 +1256,44 @@ def main() -> int:
     catchup, catchup_items, catchup_got, catchup_bad = phase_catchup(rng)
     launches = vk.verify_kernel.launches
     check(launches > 0, "the main path launched no K1 kernel")
-    print(f"[main-path] verify_cold launches: {launches}")
-    per_batch, compared, err6 = phase_kernel_times(
-        dev, rng, info, dict(zip(KERNEL_BATCHES, (txset_items,
-                                                  catchup_items))))
+    audited = check_dispatch_clean([default_verifier()], "cold paths")
+    print(f"[main-path] verify_cold launches: {launches}; dispatch clean "
+          f"(no device fault, no audit mismatch, breakers closed); "
+          f"{audited} parts audited clean at rate {batch_engine.AUDIT_RATE}")
+    main_items = dict(zip(KERNEL_BATCHES, (txset_items, catchup_items)))
+    per_batch, compared, err6, k1_ops = phase_kernel_times(
+        dev, rng, info, main_items)
     vk.verify_kernel.launches = 0
     vk.verify_kernel_hot.launches = 0
-    k1_ops = {}
+    hot_k1_ops = {}
     hot_txset, txset_rows = phase_hot_txset(dev, txset_items, txset_want,
-                                            k1_ops)
+                                            hot_k1_ops)
     hot_catchup, catchup_rows = phase_hot_catchup(
-        dev, rng, catchup_items, catchup_got, catchup_bad, k1_ops)
+        dev, rng, catchup_items, catchup_got, catchup_bad, hot_k1_ops)
     hot_launches = vk.verify_kernel_hot.launches
     hot_k1_launches = vk.verify_kernel.launches
     check(hot_launches > 0, "the hot main path launched no K2 kernel")
     check(hot_k1_launches > 0, "the hot main path launched no K1 kernel")
+    check_dispatch_clean([default_verifier()], "hot paths")
     print(f"[main-path] verify_hot launches: {hot_launches}; verify_cold "
-          f"launches on the hot paths: {hot_k1_launches}")
-    k1_hot, k1_hot_compared, k1_hot_err = phase_hot_k1_times(info, k1_ops)
+          f"launches on the hot paths: {hot_k1_launches}; dispatch clean")
+    k1_hot, k1_hot_compared, k1_hot_err = phase_hot_k1_times(info,
+                                                             hot_k1_ops)
     per_batch.update(k1_hot)
-    del k1_ops
+    del hot_k1_ops
     hot_batch, hot_compared, hot_err = phase_hot_kernel_times(
         dev, rng, info, dict(zip(KERNEL_BATCHES, (txset_rows,
                                                   catchup_rows))))
     del txset_rows, catchup_rows
     hashing = phase_hashing(dev, rng, info)
+    check_dispatch_clean([default_hasher()], "hashing")
+    r16_batch, r16_compared, r16_err, r16_launches = phase_radix_sweep(
+        dev, rng, info, main_items)
+    k4_batch, k4_compared, k4_launches = phase_sharded(dev, k1_ops, per_batch)
+    del k1_ops
+    split, split_v = phase_split(dev, txset_items, txset_want)
+    audit_cost = phase_audit_cost(txset_items, txset_want)
+    fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
           f"{k2_txset / hot_txset['p50_ms']:.1%} of the hot TxSet p50")
@@ -869,7 +1314,18 @@ def main() -> int:
                      hashing["max_abs_err"],
                      {str(HASH_MSGS): {k: hashing[k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by",
-                         "active_blocks", "ops_per_block")}}, HASH_MSGS, info["smi"])]
+                         "active_blocks", "ops_per_block")}}, HASH_MSGS, info["smi"]),
+        kernel_entry("verify_sharded", "stellar_tpu_torch/ops/verify.py:186",
+                     "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
+                     k4_launches, k4_compared, 0.0, k4_batch,
+                     f"card x {SPLIT}:{KERNEL_BATCHES[0]}", info["smi"],
+                     launches_of="verify_cold (csrc/verify_cold.cu), one "
+                     "per device entry"),
+        kernel_entry("verify_r16", "stellar_tpu_torch/csrc/verify_r16.cu",
+                     "stellar_tpu/ops/edwards.py:540",
+                     "signed_digits16_dev + _double_scalarmult16",
+                     r16_launches, r16_compared, r16_err, r16_batch,
+                     KERNEL_BATCHES[0], info["smi"])]
     print("[metrics] " + json.dumps({
         "txset_sigs": TXSET_SIGS, "txset_p50_ms": txset["p50_ms"],
         "txset_p90_ms": txset["p90_ms"],
@@ -881,7 +1337,8 @@ def main() -> int:
         "hashing": {k: hashing[k] for k in (
             "p50_ms", "p90_ms", "hashlib_p50_ms", "hashlib_p90_ms",
             "oversize")},
-        "card": info["smi"]}))
+        "split_txset": split, "audit_cost": audit_cost,
+        "fault_domains": fault_domains, "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

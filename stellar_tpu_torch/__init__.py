@@ -6,11 +6,14 @@ layout (``ops/``, ``crypto/``, ``parallel/``, ``utils/``) so each module has
 a counterpart there, imports only ``torch``, ``numpy`` and the standard
 library, and runs its device work through CUDA kernels written by hand for
 Hopper (``csrc/verify_cold.cu``, ``csrc/verify_hot.cu``,
-``csrc/sha256.cu``). Every kernel has a plain PyTorch version beside it; a
-wrapper runs that plain version only for tensors on the CPU.
+``csrc/sha256.cu``, ``csrc/verify_r16.cu``). Every kernel has a plain
+PyTorch version beside it; a wrapper runs that plain version only for
+tensors on the CPU.
 
-Entry points default to the first CUDA card and raise when there is none;
-pass ``device="cpu"`` to run the plain versions on the host::
+The default entry points span every visible card (one card unsplit) and
+raise when there is none; pass ``device="cpu"`` to run the plain versions
+on the host, or ``devices=[...]`` to a ``BatchVerifier`` or
+``BatchHasher`` to split each bucket over a list of devices::
 
     from stellar_tpu_torch.crypto.batch_verifier import default_verifier
     ok = default_verifier().verify_batch([(pk, msg, sig), ...])

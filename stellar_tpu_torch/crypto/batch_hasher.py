@@ -30,6 +30,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from stellar_tpu_torch.ops import sha256 as sk
+from stellar_tpu_torch.parallel import mesh
 from stellar_tpu_torch.parallel.batch_engine import BatchEngine, Workload
 from stellar_tpu_torch.utils.device import resolve_device
 
@@ -53,6 +54,8 @@ class Sha256Workload(Workload):
     """Host packing in ``encode``, K3 on the device, ``hashlib`` for the
     rows that do not fit."""
 
+    libraries = ("sha256",)
+
     def encode(self, items: Sequence[bytes]) -> Tuple[np.ndarray, tuple]:
         words, active, fits = sk.pack_messages(items, MAX_BLOCKS)
         return fits, (words, active)
@@ -68,13 +71,16 @@ class Sha256Workload(Workload):
     def empty_result(self, n: int) -> np.ndarray:
         return np.zeros((n, 8), dtype=np.uint32)
 
+    def host_result(self, items: Sequence[bytes]) -> np.ndarray:
+        return sk.host_digest_words(items)
+
     def finalize(self, gate: np.ndarray, out: np.ndarray,
                  items: Sequence[bytes]) -> np.ndarray:
         if gate.all():
             return out
         res = out.copy()
         idxs = np.flatnonzero(~gate)
-        res[idxs] = sk.host_digest_words([items[i] for i in idxs])
+        res[idxs] = self.host_result([items[i] for i in idxs])
         return res
 
 
@@ -85,11 +91,14 @@ class BatchHasher(BatchEngine):
       device: ``None`` for the first CUDA card (raises if there is none),
         ``"cuda[:N]"``, or ``"cpu"`` for the plain PyTorch kernel version.
       bucket_sizes: padded batch sizes, ascending.
+      devices: instead of ``device``, a list of devices to split each
+        bucket over; an entry may repeat.
     """
 
-    def __init__(self, device=None, bucket_sizes=DEFAULT_HASH_BUCKET_SIZES):
+    def __init__(self, device=None, bucket_sizes=DEFAULT_HASH_BUCKET_SIZES,
+                 devices=None):
         super().__init__(Sha256Workload(), device=device,
-                         bucket_sizes=bucket_sizes)
+                         bucket_sizes=bucket_sizes, devices=devices)
 
     def hash_batch(self, msgs: Sequence[bytes]) -> List[bytes]:
         """The digests of ``msgs``, in order, equal to
@@ -102,17 +111,21 @@ class BatchHasher(BatchEngine):
         return self.compute_batch(msgs)
 
 
-_defaults: Dict[str, BatchHasher] = {}
+_defaults: Dict[tuple, BatchHasher] = {}
 _defaults_lock = threading.Lock()
 
 
 def default_hasher(device=None) -> BatchHasher:
-    """The process-wide hasher for ``device`` (default: the first CUDA
-    card, raising when there is none)."""
-    key = str(resolve_device(device))
+    """The process-wide hasher. With no ``device``, every visible card
+    (split), or the one card unsplit; raises when there is none. With
+    ``device``, that device alone."""
+    devs = mesh.auto_devices() if device is None else None
+    if devs is None:
+        devs = [resolve_device(device)]
+    key = tuple(str(d) for d in devs)
     with _defaults_lock:
         if key not in _defaults:
-            _defaults[key] = BatchHasher(device=key)
+            _defaults[key] = BatchHasher(devices=list(key))
         return _defaults[key]
 
 

@@ -18,6 +18,14 @@ by default): a signer's first sight rides the cold kernel K1 and installs
 its table, every repeat rides the hot kernel K2
 (:class:`Ed25519HotWorkload`) with that table as an operand. With the
 cache off every row rides cold. The split never changes a verdict.
+
+Both workloads ride the engine's fault domains: a part whose copy, launch
+or fetch fails moves to another device, and a sample of every
+device-served part (the audit) is verified on the host by
+:func:`stellar_tpu_torch.crypto.native_verify.host_verify`, the
+libsodium-exact host oracle. :func:`default_verifier`
+spans every visible card (:func:`stellar_tpu_torch.parallel.mesh.
+auto_devices`), and one card unsplit when there is one.
 """
 
 from __future__ import annotations
@@ -28,9 +36,9 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from stellar_tpu_torch.crypto import ed25519_ref as ref
-from stellar_tpu_torch.crypto import native_prep
+from stellar_tpu_torch.crypto import native_prep, native_verify
 from stellar_tpu_torch.ops import verify as vk
-from stellar_tpu_torch.parallel import signer_tables
+from stellar_tpu_torch.parallel import mesh, signer_tables
 from stellar_tpu_torch.parallel.batch_engine import (
     DEFAULT_BUCKET_SIZES, BatchEngine, Workload)
 from stellar_tpu_torch.utils.device import resolve_device
@@ -69,6 +77,8 @@ class Ed25519Workload(Workload):
     kernel on the device; ``finalize`` ANDs the gate into the device bits,
     so a gate-rejected row is False whatever the device said."""
 
+    libraries = ("verify_cold",)
+
     def encode(self, items: Sequence[tuple]) -> Tuple[np.ndarray, tuple]:
         n = len(items)
         ok = np.ones(n, dtype=bool)
@@ -105,6 +115,9 @@ class Ed25519Workload(Workload):
     def kernel_fn(self):
         return vk.verify_kernel
 
+    def host_result(self, items: Sequence[tuple]) -> np.ndarray:
+        return native_verify.host_verify(items)
+
     def empty_result(self, n: int) -> np.ndarray:
         return np.zeros(n, dtype=bool)
 
@@ -125,6 +138,7 @@ class Ed25519HotWorkload(Ed25519Workload):
     unchanged, then puts the stacked tables in place of the pubkeys."""
 
     variant_name = "hot"
+    libraries = ("verify_hot",)
 
     def encode(self, items: Sequence[tuple]) -> Tuple[np.ndarray, tuple]:
         ok, (_a, r, s, h) = super().encode([it for it, _t in items])
@@ -136,6 +150,15 @@ class Ed25519HotWorkload(Ed25519Workload):
 
     def kernel_fn(self):
         return vk.verify_kernel_hot
+
+    def host_result(self, items: Sequence[tuple]) -> np.ndarray:
+        return native_verify.host_verify([it for it, _t in items])
+
+    def audit_material(self, encoded: tuple, lo: int, hi: int) -> bytes:
+        """R, s and h of the rows: the tables (15,360 bytes a row, a
+        function of the pubkey) are left out of the hash that seeds the
+        sample, which stays a function of the batch's content."""
+        return b"".join(x[lo:hi].tobytes() for x in encoded[1:])
 
     def on_audit_conviction(self, items: Sequence[tuple]) -> None:
         """A conviction over a hot-served part evicts every table that
@@ -155,11 +178,15 @@ class BatchVerifier(BatchEngine):
       bucket_sizes: padded batch sizes, ascending; the reference's
         constructor default, where :func:`default_verifier` takes the
         full ladder.
+      devices: instead of ``device``, a list of devices to split each
+        bucket over (per-device sub-chunks and fault domains); an entry
+        may repeat.
     """
 
-    def __init__(self, device=None, bucket_sizes=(128, 512, 2048)):
+    def __init__(self, device=None, bucket_sizes=(128, 512, 2048),
+                 devices=None):
         super().__init__(Ed25519Workload(), device=device,
-                         bucket_sizes=bucket_sizes)
+                         bucket_sizes=bucket_sizes, devices=devices)
         self._hot = Ed25519HotWorkload()
         self.served["hot"] = 0
 
@@ -232,16 +259,21 @@ _PAD_H = np.zeros((1, 32), dtype=np.uint8)
 # scalars select no entry, so any valid table would do).
 _PAD_TABLE = signer_tables.build_signer_table(_PAD_A.tobytes())[None]
 
-_defaults: Dict[str, BatchVerifier] = {}
+_defaults: Dict[tuple, BatchVerifier] = {}
 _defaults_lock = threading.Lock()
 
 
 def default_verifier(device=None) -> BatchVerifier:
-    """The process-wide verifier for ``device`` (default: the first CUDA
-    card, raising when there is none), over the full bucket ladder."""
-    key = str(resolve_device(device))
+    """The process-wide verifier over the full bucket ladder. With no
+    ``device``, every visible card (split, as the reference's default
+    mesh spans every local device), or the one card unsplit; raises when
+    there is none. With ``device``, that device alone."""
+    devs = mesh.auto_devices() if device is None else None
+    if devs is None:
+        devs = [resolve_device(device)]
+    key = tuple(str(d) for d in devs)
     with _defaults_lock:
         if key not in _defaults:
-            _defaults[key] = BatchVerifier(device=key,
-                                           bucket_sizes=DEFAULT_BUCKET_SIZES)
+            _defaults[key] = BatchVerifier(
+                devices=list(key), bucket_sizes=DEFAULT_BUCKET_SIZES)
         return _defaults[key]

@@ -16,7 +16,14 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
 * :func:`hot_matching_rows` — the same for the hot kernel: rows (signer
   table, R, s, h) with R set to what the 128-entry tables reach, the top
   radix-256 digit of s and h often above 128 (where the select
-  saturates).
+  saturates);
+* :func:`r16_matching_rows` — rows for the radix-16 kernel whose bit is
+  True: s and h below :data:`R16_OVERFLOW`, where the top radix-16 digit
+  fits the 8-entry table;
+* :func:`r16_overflow_rows` — rows with s or h at or above
+  :data:`R16_OVERFLOW` (every s >= 9 * 2^252 among them), where the top
+  digit selects the zero point: R = 32 zero bytes (bit True) on even
+  rows, R = encode(s*B + h*(-A)) (bit False) on odd ones.
 """
 
 from __future__ import annotations
@@ -27,7 +34,15 @@ from stellar_tpu_torch.crypto import ed25519_ref as ref
 from stellar_tpu_torch.parallel.signer_tables import build_signer_table
 
 __all__ = ["keypair", "valid_items", "edge_corpus", "matching_rows",
-           "random_rows", "hot_matching_rows"]
+           "random_rows", "hot_matching_rows", "r16_matching_rows",
+           "r16_overflow_rows", "R16_OVERFLOW"]
+
+# The least scalar whose signed radix-16 top digit exceeds the 8-entry
+# table: 0x8777...78 (an 8, 62 sevens, an 8). Digits in [-8, 8) below
+# the top reach at most 0x77...7 (63 nibbles), so the low 252 bits carry
+# into the top window from 0x77...78 on; the top digit is 9 from here and
+# 8 just below. Every scalar >= 9 * 2^252 overflows.
+R16_OVERFLOW = 8 * 16**63 + 7 * (16**63 - 1) // 15 + 1
 
 
 def keypair(rng: np.random.Generator):
@@ -104,15 +119,60 @@ def matching_rows(rng: np.random.Generator, n: int):
     True: A a valid key, s and h arbitrary 256-bit scalars (the first rows
     take the extremes 0, 2^255 - 1, 2^255, 2^256 - 1), R = encode(s*B +
     h*(-A))."""
-    extremes = [0, 2**255 - 1, 2**255, 2**256 - 1]
+    return _rows_for(rng, n, [0, 2**255 - 1, 2**255, 2**256 - 1],
+                     lambda: int.from_bytes(rng.bytes(32), "little"))
+
+
+def r16_matching_rows(rng: np.random.Generator, n: int):
+    """``n`` raw rows (a, r, s, h) whose radix-16 device bit is True: s
+    and h below :data:`R16_OVERFLOW` (the first rows take 0, 8 * 2^252,
+    ``R16_OVERFLOW - 1`` and 2^255 - 1, top digits 0 and 8), R =
+    encode(s*B + h*(-A))."""
+    return _rows_for(rng, n, [0, 8 * 2**252, R16_OVERFLOW - 1, 2**255 - 1],
+                     lambda: int.from_bytes(rng.bytes(32), "little")
+                     % R16_OVERFLOW)
+
+
+def r16_overflow_rows(rng: np.random.Generator, n: int):
+    """``n`` raw rows (a, r, s, h) with a valid A and s or h at or above
+    :data:`R16_OVERFLOW`, where the radix-16 top digit (9 to 16) selects
+    the zero point and the accumulator ends at (0, 0, 0): R = 32 zero
+    bytes on even rows (bit True), R = encode(s*B + h*(-A)) on odd rows
+    (bit False). The first rows take ``R16_OVERFLOW``, 9 * 2^252 and
+    2^256 - 1."""
+    a, r, s, h = _rows_for(rng, n, [R16_OVERFLOW, 9 * 2**252, 2**256 - 1],
+                           lambda: R16_OVERFLOW + int.from_bytes(
+                               rng.bytes(32), "little")
+                           % (2**256 - R16_OVERFLOW))
+    for i in range(n):
+        if i % 4 == 1:  # only h overflows
+            s[i] = np.frombuffer((int.from_bytes(s[i].tobytes(), "little")
+                                  % R16_OVERFLOW).to_bytes(32, "little"),
+                                 np.uint8)
+        elif i % 4 == 3:  # only s overflows
+            h[i] = np.frombuffer((int.from_bytes(h[i].tobytes(), "little")
+                                  % R16_OVERFLOW).to_bytes(32, "little"),
+                                 np.uint8)
+    for i in range(n):
+        sv, hv = (int.from_bytes(x[i].tobytes(), "little") for x in (s, h))
+        pk = a[i].tobytes()
+        point = ref.point_add(ref.scalarmult_base(sv), ref.point_mul(
+            hv, _neg(ref.point_decompress(pk))))
+        r[i] = np.frombuffer(bytes(32) if i % 2 == 0
+                             else ref.point_compress(point), np.uint8)
+    return a, r, s, h
+
+
+def _rows_for(rng, n, extremes, draw):
+    """``n`` rows (a, r, s, h) over fresh keys with R = encode(s*B +
+    h*(-A)): s takes ``extremes`` in order and h in reverse order on the
+    first rows, then both come from ``draw()``."""
     a = np.zeros((n, 32), np.uint8)
     r, s, h = np.zeros_like(a), np.zeros_like(a), np.zeros_like(a)
     for i in range(n):
         _, pk = keypair(rng)
-        sv = extremes[i] if i < len(extremes) else \
-            int.from_bytes(rng.bytes(32), "little")
-        hv = extremes[-1 - i] if i < len(extremes) else \
-            int.from_bytes(rng.bytes(32), "little")
+        sv = extremes[i] if i < len(extremes) else draw()
+        hv = extremes[-1 - i] if i < len(extremes) else draw()
         point = ref.point_add(ref.scalarmult_base(sv),
                               ref.point_mul(hv, _neg(ref.point_decompress(pk))))
         a[i] = np.frombuffer(pk, np.uint8)

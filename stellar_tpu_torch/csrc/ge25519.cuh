@@ -3,9 +3,11 @@
 //   ge_p3      extended   (X : Y : Z : T), x = X/Z, y = Y/Z, xy = T/Z
 //   ge_p1p1    completed  ((X : Z), (Y : T))
 //   ge_precomp affine cached (y + x, y - x, 2d*x*y), Z == 1
+//   ge_cached  projective cached (Y + X, Y - X, Z, 2d*T)
 //
 // Replaces the group layer of stellar_tpu/ops/edwards.py (point_double,
-// point_add_cached with its affine fast path, decompress, compress_equals).
+// point_add_cached with its affine and projective forms, to_cached,
+// decompress, compress_equals).
 // The formulas are the complete unified ones for a = -1, so they hold for
 // every pair of curve points, small-order and identity included.
 #pragma once
@@ -22,6 +24,9 @@ struct ge_p1p1 {
 };
 struct ge_precomp {
   fe yplusx, yminusx, xy2d;
+};
+struct ge_cached {
+  fe YplusX, YminusX, Z, T2d;
 };
 
 // Curve constants, canonical limbs: d, 2d, sqrt(-1).
@@ -64,6 +69,53 @@ FE_CALL void ge_p2_dbl(ge_p1p1& r, const ge_p2& p) {
   fe_sub(r.Z, r.Z, r.X);
   fe_sub(r.X, t0, r.Y);
   fe_sub(r.T, r.T, r.Z);
+}
+
+// r = 2p from an extended point, T kept for the adds that follow once r
+// goes to ge_p3: 4 squarings
+FE_CALL void ge_p3_dbl(ge_p1p1& r, const ge_p3& p) {
+  const ge_p2 q = {p.X, p.Y, p.Z};
+  ge_p2_dbl(r, q);
+}
+
+// cached form of p: 1 multiply (ref10 ge_p3_to_cached)
+FE_CALL void ge_p3_to_cached(ge_cached& r, const ge_p3& p, const fe& d2) {
+  fe_add(r.YplusX, p.Y, p.X);
+  fe_sub(r.YminusX, p.Y, p.X);
+  r.Z = p.Z;
+  fe_mul(r.T2d, p.T, d2);
+}
+
+// r = p + q with q projective cached: 4 multiplies (ref10 ge_add)
+FE_CALL void ge_add(ge_p1p1& r, const ge_p3& p, const ge_cached& q) {
+  fe t0;
+  fe_add(r.X, p.Y, p.X);
+  fe_sub(r.Y, p.Y, p.X);
+  fe_mul(r.Z, r.X, q.YplusX);
+  fe_mul(r.Y, r.Y, q.YminusX);
+  fe_mul(r.T, q.T2d, p.T);
+  fe_mul(r.X, p.Z, q.Z);
+  fe_add(t0, r.X, r.X);
+  fe_sub(r.X, r.Z, r.Y);
+  fe_add(r.Y, r.Z, r.Y);
+  fe_add(r.Z, t0, r.T);
+  fe_sub(r.T, t0, r.T);
+}
+
+// r = p - q with q projective cached: 4 multiplies (ref10 ge_sub)
+FE_CALL void ge_sub(ge_p1p1& r, const ge_p3& p, const ge_cached& q) {
+  fe t0;
+  fe_add(r.X, p.Y, p.X);
+  fe_sub(r.Y, p.Y, p.X);
+  fe_mul(r.Z, r.X, q.YminusX);
+  fe_mul(r.Y, r.Y, q.YplusX);
+  fe_mul(r.T, q.T2d, p.T);
+  fe_mul(r.X, p.Z, q.Z);
+  fe_add(t0, r.X, r.X);
+  fe_sub(r.X, r.Z, r.Y);
+  fe_add(r.Y, r.Z, r.Y);
+  fe_sub(r.Z, t0, r.T);
+  fe_add(r.T, t0, r.T);
 }
 
 // r = p + q with q affine: 3 multiplies (ref10 ge_madd)

@@ -58,6 +58,8 @@ LIBRARIES = {
                          "fe25519.cuh", "launch.cuh"),
                         "hot_kernel_consts", 4, 0),
     "sha256": _Spec(("sha256.cu", "sha256.cuh", "launch.cuh"), None, 2, 1),
+    "verify_r16": _Spec(("verify_r16.cu", "ge25519.cuh", "fe25519.cuh",
+                         "launch.cuh"), "r16_kernel_consts", 4, 0),
 }
 
 _locks = {name: threading.Lock() for name in LIBRARIES}

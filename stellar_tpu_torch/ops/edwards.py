@@ -4,7 +4,10 @@ op for op, so every limb compares bit for bit with the reference.
 
 The hot-signer loop (:func:`double_scalarmult_hot`, radix 256 over a
 cached 128-entry table of -A) is here too; its kernel is
-``csrc/verify_hot.cu``.
+``csrc/verify_hot.cu``. So is the radix-16 arm
+(:func:`_double_scalarmult16`, 64 signed digits over 8-entry projective
+cached tables, with :func:`table_select`, :func:`base_table` and
+:func:`build_point_table`); its kernel is ``csrc/verify_r16.cu``.
 
 Points are extended homogeneous ``(X, Y, Z, T)`` tuples (or projective
 ``(X, Y, Z)`` where T is never read); each coordinate is a limb tensor of
@@ -26,10 +29,15 @@ __all__ = [
     "identity", "negate", "to_cached", "point_add_cached", "point_double",
     "unpack255", "decompress", "compress_equals", "build_point_table_affine",
     "base_table_affine", "table_select_affine", "double_scalarmult",
-    "base_table_affine_wide", "double_scalarmult_hot",
-    "D_LIMBS", "D2_LIMBS", "SQRTM1_LIMBS", "WINDOWS32", "TABLE_ENTRIES32",
-    "WINDOWS256", "TABLE_ENTRIES256",
+    "base_table_affine_wide", "double_scalarmult_hot", "table_select",
+    "base_table", "build_point_table",
+    "D_LIMBS", "D2_LIMBS", "SQRTM1_LIMBS", "WINDOWS", "TABLE_ENTRIES",
+    "WINDOWS32", "TABLE_ENTRIES32", "WINDOWS256", "TABLE_ENTRIES256",
 ]
+
+WINDOWS = 64       # signed radix-16 digits per 256-bit scalar
+TABLE_ENTRIES = 8  # entries of each radix-16 window table
+CACHED_COORDS = 4  # projective cached entry: (Y+X, Y-X, Z, 2d*T)
 
 WINDOWS32 = 52        # signed radix-32 digits per 256-bit scalar
 TABLE_ENTRIES32 = 16  # entries of each window table
@@ -172,6 +180,72 @@ def compress_equals(p, r_bytes):
     return (ya == ry).all(dim=0) & ((xa[0] & 1) == rsign)
 
 
+def table_select(table, digit):
+    """table (8, 4, 20, *batch) cached multiples 1..8 of a point; digit
+    (*batch,) int32 signed -> the cached point |digit|*P, negated for a
+    negative digit. A one-hot multiply-accumulate over the 8 entries, as
+    the reference computes it: digit 0 matches no entry and is patched to
+    the cached identity (1, 1, 1, 0) by three limb-0 adds; a magnitude
+    above 8 (the radix-16 recode's top digit for s >= 9 * 2^252) matches
+    no entry and gets no patch, so it selects the all-zero point."""
+    nb = digit.dim()
+    mag = digit.abs()
+    idx = torch.arange(1, TABLE_ENTRIES + 1, dtype=torch.int32,
+                       device=digit.device).reshape((TABLE_ENTRIES,)
+                                                    + (1,) * nb)
+    onehot = (idx == mag[None]).to(torch.int32)
+    sel = (table * onehot[:, None, None]).sum(dim=0, dtype=torch.int32)
+    ypx, ymx, z, t2d = sel[0], sel[1], sel[2], sel[3]
+    is0 = (digit == 0).to(torch.int32)
+    ypx = ypx.clone()
+    ymx = ymx.clone()
+    z = z.clone()
+    ypx[0] += is0
+    ymx[0] += is0
+    z[0] += is0
+    neg = digit < 0
+    return (fe.select(neg, ymx, ypx), fe.select(neg, ypx, ymx), z,
+            fe.select(neg, fe.neg(t2d), t2d))
+
+
+def _base_multiples() -> np.ndarray:
+    """v*B for v = 1..8 in cached form (y+x, y-x, 1, 2d*x*y), canonical
+    limbs, (8, 4, 20) int32: Z is exactly 1."""
+    out = np.zeros((TABLE_ENTRIES, CACHED_COORDS, fe.NLIMBS), dtype=np.int32)
+    for v, (ypx, ymx, t2d) in enumerate(
+            ref.affine_table_rows(ref.BASE, TABLE_ENTRIES)):
+        out[v] = np.stack([fe.from_int(ypx), fe.from_int(ymx),
+                           fe.from_int(1), fe.from_int(t2d)])
+    return out
+
+
+_BASE_TABLE = _base_multiples()
+
+
+def base_table(batch_shape, device):
+    """(8, 4, 20, *batch) constant cached table of v*B, v = 1..8."""
+    t = torch.as_tensor(_BASE_TABLE, device=device)
+    return t.reshape(t.shape + (1,) * len(batch_shape)).expand(
+        t.shape + tuple(batch_shape))
+
+
+def build_point_table(p):
+    """Cached table v*p, v = 1..8 -> (8, 4, 20, *batch), projective (no
+    inversion), by the reference's seven group ops: 2 = dbl(1), 4 =
+    dbl(2), {3, 5} = {2, 4} + 1, {6, 8} = dbl({3, 4}), 7 = 6 + 1, then one
+    stacked ``to_cached`` of all eight."""
+    c1 = to_cached(p)
+    p2 = point_double(p)
+    p4 = point_double(p2)
+    p3, p5 = _unstack_points(point_add_cached(_stack_points([p2, p4]),
+                                              _stack_points([c1, c1])), 2)
+    p6, p8 = _unstack_points(point_double(_stack_points([p3, p4])), 2)
+    p7 = point_add_cached(p6, c1)
+    cached = to_cached(_stack_points([p, p2, p3, p4, p5, p6, p7, p8]))
+    # (4, 20, 8, *batch) -> (8, 4, 20, *batch)
+    return torch.stack(cached).movedim(2, 0)
+
+
 def _extended_multiples(p, entries=TABLE_ENTRIES32):
     """[1*p .. entries*p] by the even/odd ladder: each round doubles every
     v whose 2v is missing (one stacked double) and adds p to every even v
@@ -300,14 +374,37 @@ def _extended_from_affine_cached(c):
 
 
 def double_scalarmult(s_digits, h_digits, a_neg):
-    """R' = s*B + h*a_neg from (52, batch) signed radix-32 digits. The
-    reference also has a radix-16 arm for (64, batch) digits; it is not
-    ported yet, so that shape raises."""
-    if s_digits.shape[0] != WINDOWS32 or h_digits.shape[0] != WINDOWS32:
-        raise NotImplementedError(
-            "only the radix-32 arm (52 digits) is ported; the radix-16 "
-            f"arm (64 digits) is not: got {s_digits.shape[0]} digits")
-    return _double_scalarmult32(s_digits, h_digits, a_neg)
+    """R' = s*B + h*a_neg, the radix read from the digit count as the
+    reference does: (52, batch) signed digits run the radix-32 arm (K1's),
+    (64, batch) the radix-16 arm (K5's). Returns a projective (X, Y, Z)
+    triple."""
+    if s_digits.shape[0] == WINDOWS32:
+        return _double_scalarmult32(s_digits, h_digits, a_neg)
+    return _double_scalarmult16(s_digits, h_digits, a_neg)
+
+
+def _double_scalarmult16(s_digits, h_digits, a_neg):
+    """Radix-16 Strauss-Shamir: (64, batch) signed digits in [-8, 8), most
+    significant first, the top digit in [0, 16]. 64 windows of four
+    doublings (the fourth keeps T for the adds), then a base add with
+    Z == 1 and a projective cached A add, both entries from one fused
+    one-hot select. A top digit above 8 selects the zero point and the
+    accumulator ends at (0, 0, 0), as in the reference."""
+    batch = tuple(a_neg[0].shape[1:])
+    tab_a = build_point_table(a_neg)
+    tab_b = base_table(batch, a_neg[0].device)
+    tab = torch.stack([tab_b, tab_a], dim=3)  # (8, 4, 20, 2, *batch)
+    acc = identity(batch, a_neg[0].device)[:3]
+    for j in range(WINDOWS):
+        for _ in range(3):
+            acc = point_double(acc, need_t=False)
+        acc = point_double(acc)  # the adds below read T
+        sel = table_select(tab, torch.stack([s_digits[j], h_digits[j]]))
+        acc = point_add_cached(acc, tuple(c[:, 0] for c in sel),
+                               z2_is_one=True)
+        acc = point_add_cached(acc, tuple(c[:, 1] for c in sel),
+                               need_t=False)
+    return acc
 
 
 def _double_scalarmult32(s_digits, h_digits, a_neg):

@@ -15,7 +15,11 @@ layouts, built from the port's own
   limbs of ref10's radix 2^25.5 — 510 int32;
 * ``hot_kernel_consts``, K2's block (``csrc/verify_hot.cuh``, ``struct
   verify_hot_consts``): d, 2d, then the 128 affine cached B entries in the
-  same limbs — 3,860 int32, 15,440 bytes.
+  same limbs — 3,860 int32, 15,440 bytes;
+* ``r16_kernel_consts``, K5's block (``csrc/verify_r16.cu``, ``struct
+  verify_r16_consts``): d, 2d, sqrt(-1), then the 8 affine cached B
+  entries v*B, v = 1..8 (the first rows of ``base_table32``; the radix-16
+  base table holds the same values with Z == 1) — 270 int32.
 
 :func:`tables_from_jax` converts the JAX package's numpy constants into
 the same dictionary, and :func:`signer_table_from_jax` takes one signer
@@ -79,6 +83,9 @@ def _tables(base_table32, base_table256, d, d2, sqrtm1, sub_pad) -> dict:
             _kernel_consts((d, d2, sqrtm1), base_table32)),
         "hot_kernel_consts": torch.as_tensor(
             _kernel_consts((d, d2), base_table256)),
+        "r16_kernel_consts": torch.as_tensor(
+            _kernel_consts((d, d2, sqrtm1),
+                           np.asarray(base_table32)[:ed.TABLE_ENTRIES])),
     }
 
 

@@ -1,6 +1,7 @@
-"""K1, K2 and K3 on the card: each hand-written CUDA kernel against its
-plain PyTorch version on the same CUDA tensors, bit for bit and word for
-word (integer arithmetic, tolerance zero), and the batch verifier's and
+"""K1, K2, K3 and K5 on the card: each hand-written CUDA kernel against
+its plain PyTorch version on the same CUDA tensors, bit for bit and word
+for word (integer arithmetic, tolerance zero); K4 over the one card named
+four times against K1; and the batch verifier's (unsplit and split) and
 hasher's main paths through the kernels.
 
 Every test needs a CUDA card and skips inside the test when there is
@@ -16,12 +17,15 @@ import torch
 from stellar_tpu_torch.crypto import ed25519_ref as ref
 from stellar_tpu_torch.crypto import vectors
 from stellar_tpu_torch.crypto.batch_hasher import BatchHasher
+from stellar_tpu_torch.crypto import batch_verifier as bv
 from stellar_tpu_torch.crypto.batch_verifier import (BatchVerifier,
                                                      Ed25519Workload)
 from stellar_tpu_torch.ops import _build
 from stellar_tpu_torch.ops import sha256 as tsk
 from stellar_tpu_torch.ops import verify as tvk
+from stellar_tpu_torch.parallel import mesh
 from stellar_tpu_torch.parallel import signer_tables as st
+from stellar_tpu_torch.utils import faults
 
 pytestmark = pytest.mark.gpu
 
@@ -176,3 +180,88 @@ def test_batch_hasher_main_path_on_card(card):
     assert h.hash_batch(msgs) == [hashlib.sha256(m).digest() for m in msgs]
     assert tsk.sha256_kernel.launches == before + 2
     assert h.served["host"] == sum(len(m) > 503 for m in msgs)
+
+
+def _r16_rows(rng, n):
+    """n rows: the encoded edge corpus, radix-16 matching rows, overflow
+    rows (top digit above 8; R = 0 on even ones), then K1's rows."""
+    _, edge = Ed25519Workload().encode(vectors.edge_corpus(rng))
+    head = [edge, vectors.r16_matching_rows(rng, 16),
+            vectors.r16_overflow_rows(rng, 16)]
+    have = sum(len(p[0]) for p in head)
+    tail = _rows(rng, n - have)
+    return tuple(np.ascontiguousarray(np.concatenate(
+        [p[k] for p in head] + [tail[k]])) for k in range(4)), len(edge[0])
+
+
+@pytest.mark.parametrize("batch", [128, 2048])
+def test_r16_kernel_matches_plain_at_bucket(card, batch):
+    rows, n_edge = _r16_rows(np.random.default_rng(68), batch)
+    ops = tuple(torch.from_numpy(x).to(card) for x in rows)
+    before = tvk.verify_kernel_r16.launches
+    got = tvk.verify_kernel_r16(*ops)
+    torch.cuda.synchronize(card)
+    assert tvk.verify_kernel_r16.launches == before + 1
+    want = tvk.verify_kernel_r16_plain(*ops)
+    assert torch.equal(got, want), torch.nonzero(got != want).flatten()
+    head = got[n_edge:n_edge + 32].tolist()
+    assert head == [True] * 16 + [True, False] * 8
+    assert "registers" in _build.build_log(_build.library_path("verify_r16"))
+
+
+@pytest.mark.parametrize("batch", [128, 2048])
+def test_sharded_over_one_card_named_four_times(card, batch):
+    rows = _rows(np.random.default_rng(69), batch)
+    ops = tuple(torch.from_numpy(x).to(card) for x in rows)
+    before = tvk.verify_kernel_sharded.launches
+    k1 = tvk.verify_kernel.launches
+    got = tvk.verify_kernel_sharded([card] * 4)(*ops)
+    torch.cuda.synchronize(card)
+    assert tvk.verify_kernel_sharded.launches == before + 1
+    assert tvk.verify_kernel.launches == k1 + 4
+    assert got.device == card
+    assert torch.equal(got, tvk.verify_kernel(*ops))
+
+
+def test_split_verifier_main_path_on_card(card):
+    """A verifier over the card named 4 times: every index serves, the
+    verdicts equal the oracle, nothing fails over, the audit is clean."""
+    rng = np.random.default_rng(70)
+    items = vectors.valid_items(rng, 90) + vectors.edge_corpus(rng)
+    items = items[:128]
+    st.signer_table_cache.configure(enabled=False)
+    try:
+        v = BatchVerifier(devices=[card] * 4, bucket_sizes=(128,))
+        got = v.verify_batch(items)
+    finally:
+        st.signer_table_cache._reset_for_testing()
+    assert got.tolist() == [ref.verify(*it) for it in items]
+    assert sorted(v.device_served) == [0, 1, 2, 3]
+    assert v.served["device"] == len(items) and v.audit_mismatches == 0
+    assert v.health.quarantined(4) == [] and not v.convicted
+
+
+def test_card_launch_fault_raises(card):
+    """A launch fault on the one card raises to the caller: the rows are
+    not recomputed on the host."""
+    rng = np.random.default_rng(69)
+    items = vectors.valid_items(rng, 4)
+    st.signer_table_cache.configure(enabled=False)
+    v = BatchVerifier(device=card, bucket_sizes=(128,))
+    faults.set_fault(faults.DISPATCH, "raise")
+    try:
+        with pytest.raises(RuntimeError, match="no device left"):
+            v.verify_batch(items)
+    finally:
+        faults.clear()
+        st.signer_table_cache._reset_for_testing()
+    assert v.served["device"] == 0
+
+
+def test_default_verifier_spans_every_card(card):
+    v = bv.default_verifier()
+    n = mesh.device_count()
+    if n == 1:
+        assert v.devices is None and v.device == card
+    else:
+        assert v.devices == mesh.batch_devices()

@@ -198,7 +198,16 @@ def test_signed_window_carry_chain_matches():
 
 
 def test_double_scalarmult_refuses_radix16():
+    """64 digits are no longer refused: they run the radix-16 arm, as in
+    the reference (52 digits run the radix-32 arm). Zero scalars give the
+    identity on both arms."""
     tp, _ = _points()
     d64 = torch.zeros((64, B), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        ted.double_scalarmult(d64, d64, tp)
+    got = ted.double_scalarmult(d64, d64, tp)
+    for g, w in zip(got, ted._double_scalarmult16(d64, d64, tp)):
+        assert torch.equal(g, w)
+    ident = torch.from_numpy(np.frombuffer(
+        ref.point_compress(ref.IDENTITY), np.uint8).copy()).expand(B, 32)
+    d52 = torch.zeros((52, B), dtype=torch.int32)
+    for p in (got, ted.double_scalarmult(d52, d52, tp)):
+        assert ted.compress_equals(p, ident.contiguous()).all()

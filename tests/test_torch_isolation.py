@@ -41,7 +41,9 @@ def test_forbidden_imports_absent():
 def test_import_and_verify_with_jax_blocked():
     """A fresh interpreter in which importing jax or stellar_tpu fails
     imports the port, verifies three items on the CPU twice (the second
-    time through the hot-signer path) and hashes forty messages."""
+    time through the hot-signer path), runs K5 and K4 on two rows, verifies
+    the three items again over a verifier split across two indices, and
+    hashes forty messages."""
     code = "\n".join([
         "import sys, hashlib",
         "sys.modules['jax'] = None",
@@ -62,6 +64,17 @@ def test_import_and_verify_with_jax_blocked():
         "assert v.served['hot'] == 0",
         "print(v.verify_batch(items).tolist())",
         "assert v.served['hot'] == 3",
+        "import torch",
+        "from stellar_tpu_torch.ops import verify as vk",
+        "rows = vectors.r16_matching_rows(rng, 2)",
+        "t = [torch.from_numpy(x) for x in rows]",
+        "assert vk.verify_kernel_r16(*t).tolist() == [True, True]",
+        "assert vk.verify_kernel_sharded(['cpu'] * 2)(*t).tolist() == "
+        "[True, True]",
+        "signer_tables.signer_table_cache.configure(enabled=False)",
+        "v2 = BatchVerifier(devices=['cpu'] * 2, bucket_sizes=(4,))",
+        "assert v2.verify_batch(items).tolist() == [True, False, True]",
+        "assert sorted(v2.device_served) == [0, 1]",
         "msgs = [bytes([i]) * (13 * i) for i in range(40)]",
         "assert hash_many(msgs, device='cpu') == "
         "[hashlib.sha256(m).digest() for m in msgs]",
