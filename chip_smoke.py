@@ -14,11 +14,13 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 2. build   — K1 (``csrc/verify_cold.cu``), K2 (``csrc/verify_hot.cu``),
    K3 (``csrc/sha256.cu``) and K5 (``csrc/verify_r16.cu``) with nvcc, the
    SHA-512 prep library and the native host oracle with g++, the six
-   builds started together; build seconds, registers and spills;
-3. kernel against plain — K1 and its plain PyTorch version on the same
-   CUDA tensors (edge corpus, good signatures, rows whose device bit is
-   True for arbitrary 256-bit scalars, random bytes): equal bits on every
-   row;
+   builds started together; build seconds, registers and spills (K1's
+   entry function parsed apart);
+3. kernel against plain — K1 (four threads a row) and its plain PyTorch
+   version on the same CUDA tensors (edge corpus, good signatures, rows
+   whose device bit is True for arbitrary 256-bit scalars, random bytes):
+   equal bits on every row; then at the ragged sizes 1, 5, 127, 129 and
+   2,047 rows (rows past n inside a group of four lanes, partial warps);
 4. main path, cold TxSet — the signer-table cache off;
    ``default_verifier().verify_batch`` on 2,000 signatures from 2,000
    signers over 32-byte messages, 2% corrupted; every verdict equal to the
@@ -34,7 +36,10 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    stands beside the plain version's and the bound; after phase 8 the same
    at the buckets the hot paths give K1, on the operands those calls sent
    it (B = 128: a steady hot TxSet or catchup call's uncacheable rows;
-   B = 4,096: the first hot catchup call's first sights);
+   B = 4,096: the first hot catchup call's first sights); then K1's
+   block-size sweep: 32, 64 and 128 threads a block at 128, 2,048 and
+   16,384 rows, launched past the wrapper on the same operands, equal to
+   the plain bits already taken, timed;
 7. main path, hot TxSet — the cache on and empty, phase 4's items: the
    first call (every signer a first sight: cold, one table build each)
    timed alone, then p50 and p90 of 20 calls in which every row with a
@@ -62,7 +67,8 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    radix-16 window (R = 0 on half of them) and random bytes written over
    their head; K5 and its plain version give equal bits on every row;
    then K1 and K5 timed on the same rows, one line with both times and
-   their ratio;
+   their ratio (K5 one thread a row, K1 four: the ratio compares the
+   designs, not the radices);
 12. K4 — ``verify_kernel_sharded`` over every visible card, and over the
    one card named 4 times, at B = 2,048 and 16,384 on phase 6's rows:
    equal to K1 on every row, and timed;
@@ -141,6 +147,13 @@ TIMED_CALLS = 20
 CATCHUP_CALLS = 10
 KERNEL_BATCHES = (2048, 16384)  # the buckets of the TxSet and catchup calls
 KERNEL_REPS = 50
+# K1 against plain at ragged sizes too: rows past n inside a group of four
+# lanes, and shuffles in a partial warp
+RAGGED_ROWS = (1, 5, 127, 129, 2047)
+# the block sizes (threads a block, four a row) K1 is swept over, and the
+# row counts: the hot paths' bucket and the two cold buckets
+K1_BLOCK_THREADS = (32, 64, 128)
+K1_SWEEP_ROWS = (128,) + KERNEL_BATCHES
 HASH_MSGS = 2048
 HASH_OVERSIZE_SHARE = 0.02
 HASH_CALLS = 20
@@ -161,10 +174,9 @@ SHA_SASS_OPS = ("SHF", "LOP3", "IADD3", "IMAD.IADD")
 _SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?"
                         r"([A-Z0-9_.]+)\s*([^;]*);")
 
-# Field multiplies of the CUDA kernel's op sequence, for the operations
+# Field multiplies of the CUDA kernels' op sequences, for the operations
 # bound. A ``fe_mul`` is 100 32x32->64 multiply-adds, an ``fe_sq`` 55
-# (csrc/fe25519.cuh). (squarings, multiplies) per row, from
-# csrc/verify_cold.cu:
+# (csrc/fe25519.cuh). (squarings, multiplies) per row:
 FE_MUL_MACS = 100
 FE_SQ_MACS = 55
 # fe_invert / fe_pow22523 (ref10 chains): 254 / 251 squarings, 11 multiplies
@@ -173,18 +185,26 @@ _POW22523 = (251, 11)
 # decompress: 4 sq + 7 mul around pow22523, +1 mul for the sqrt(-1) fix
 # (taken always), +1 mul for T
 _DECOMPRESS = (4 + _POW22523[0], 9 + _POW22523[1])
-# A-table: 1 doubling (4 sq, 4 mul to extended), 14 mixed adds (3 mul +
-# 4 to extended), the precomp of -A (1 mul); normalisation: 15 prefix
-# muls, one inversion, 30 back-substitution muls, 32 for x and y, 32 for
-# 2d*x*y
-_TABLE = (4 + _INVERT[0], 4 + 14 * 7 + 1 + 15 + _INVERT[1] + 30 + 32 + 32)
-# 51 windows of 5 doublings: 4 sq each, 3 muls to projective (4 to
-# extended for the last of the window)
-_DOUBLINGS = (51 * 5 * 4, 51 * (4 * 3 + 4))
-# one mixed add (3 mul) + conversion to extended (4 mul) per nonzero digit
+# an addition: a mixed add of an affine entry (3 mul) or a cached add of a
+# projective one (4 mul), and 4 mul to extended coordinates. (K1's count
+# charges the 4th, T, to the operation before the add, the one that must
+# make it; the sum is the same.)
 _ADD_MULS = 7
+_CACHED_ADD_MULS = 8
 # encode: one inversion and two multiplies
 _ENCODE = (_INVERT[0], _INVERT[1] + 2)
+# K1 (csrc/verify_cold.cu): the function's work. The A-table: 16 cached
+# forms (1 mul for 2dT), 1 doubling (4 sq + 4 mul), 14 cached adds (8 mul),
+# no inversion (the entries stay projective)
+_X4_TABLE = (4, 16 + 4 + 14 * 8)
+# a doubling whose T is not read: 4 sq + 3 mul
+_DOUBLING = (4, 3)
+# What the four-lane kernel executes beyond that (its overhead, for the
+# record, not the bound): every doubling's round 2 makes T (lane 3), and
+# every one of the 52 windows adds an entry of B and one of -A, a zero
+# digit adding the identity, whatever the scalars
+_X4_DOUBLINGS = (51 * 5 * 4, 51 * 5 * 4)
+_X4_ADDS = (0, 52 * (_ADD_MULS + _CACHED_ADD_MULS))
 # K2 (csrc/verify_hot.cuh): 31 windows of 8 doublings, 4 sq each, with 3
 # muls to projective after 7 of them and 4 to extended after the 8th
 _HOT_DOUBLINGS = (31 * 8 * 4, 31 * (7 * 3 + 4))
@@ -196,7 +216,6 @@ _HOT_DOUBLINGS = (31 * 8 * 4, 31 * (7 * 3 + 4))
 # 8 included (it adds the zero entry)
 _TABLE16 = (4, 4 + 6 * 8 + 8)
 _R16_DOUBLINGS = (63 * 4 * 4, 63 * (3 * 3 + 4))
-_R16_ADD_MULS_A = 8
 # the split phases' device list: the one card named this many times
 SPLIT = 4
 # phase 15's per-device backoff: far longer than a TxSet call (tens of
@@ -260,17 +279,32 @@ def signed_items(rng, signers, per_signer, msg_len=32):
 
 
 def cold_kernel_multiplies(s_bytes, h_bytes) -> int:
-    """32x32->64 multiply-adds that K1 executes for these rows (the kernel
-    skips the add of a zero digit, so the count depends on the scalars).
-    (batch, 32) uint8 CPU tensors in, a Python int out."""
-    nonzero = int((vk.signed_digits32(s_bytes) != 0).sum()
-                  + (vk.signed_digits32(h_bytes) != 0).sum())
-    fixed = [_DECOMPRESS, _TABLE, _DOUBLINGS, _ENCODE]
-    sq = sum(f[0] for f in fixed)
-    mul = sum(f[1] for f in fixed)
+    """32x32->64 multiply-adds of K1's function on these rows, for its
+    bound: decompress, the A-table and encode; from the most significant
+    nonzero digit of s or h down, 5 doublings a window; and an addition
+    for each nonzero digit (7 multiplies for s, 8 for h). (batch, 32)
+    uint8 CPU tensors in, a Python int out."""
+    s_nz = vk.signed_digits32(s_bytes) != 0  # (52, batch), top first
+    h_nz = vk.signed_digits32(h_bytes) != 0
+    any_nz = s_nz | h_nz
+    top = torch.where(any_nz.any(0), 51 - any_nz.int().argmax(0), 0)
+    doublings = 5 * int(top.sum())
+    fixed = [_DECOMPRESS, _X4_TABLE, _ENCODE]
     rows = s_bytes.shape[0]
-    return (rows * (sq * FE_SQ_MACS + mul * FE_MUL_MACS)
-            + nonzero * _ADD_MULS * FE_MUL_MACS)
+    sq = rows * sum(f[0] for f in fixed) + doublings * _DOUBLING[0]
+    mul = (rows * sum(f[1] for f in fixed)
+           + doublings * _DOUBLING[1] + int(s_nz.sum()) * _ADD_MULS
+           + int(h_nz.sum()) * _CACHED_ADD_MULS)
+    return sq * FE_SQ_MACS + mul * FE_MUL_MACS
+
+
+def cold_kernel_executed(rows: int) -> int:
+    """32x32->64 multiply-adds the four-lane K1 executes for ``rows`` rows,
+    each round's four products counted once: the function's work plus the
+    dead T products and the identity adds. Does not depend on the data."""
+    fixed = [_DECOMPRESS, _X4_TABLE, _X4_DOUBLINGS, _X4_ADDS, _ENCODE]
+    return rows * (sum(f[0] for f in fixed) * FE_SQ_MACS
+                   + sum(f[1] for f in fixed) * FE_MUL_MACS)
 
 
 def hot_kernel_multiplies(s_bytes, h_bytes) -> int:
@@ -296,7 +330,7 @@ def r16_kernel_multiplies(s_bytes, h_bytes) -> int:
     sq = sum(f[0] for f in fixed)
     mul = sum(f[1] for f in fixed)
     return (s_bytes.shape[0] * (sq * FE_SQ_MACS + mul * FE_MUL_MACS)
-            + (nz_s * _ADD_MULS + nz_h * _R16_ADD_MULS_A) * FE_MUL_MACS)
+            + (nz_s * _ADD_MULS + nz_h * _CACHED_ADD_MULS) * FE_MUL_MACS)
 
 
 def bound(info, ops, ops_per_clock_per_sm, nbytes):
@@ -310,15 +344,11 @@ def bound(info, ops, ops_per_clock_per_sm, nbytes):
     return bytes_ms, "bytes"
 
 
-def sha_ops_per_block():
-    """K3's 32-bit integer operations per compressed block, from
-    ``cuobjdump -sass`` of the built library: the instructions between
-    the kernel's one backward branch and its target (the loop over a
-    row's blocks), of the kinds in ``SHA_SASS_OPS`` (``.X`` carry forms,
-    moves, loads, compares and branches left out). Returns (count, the
-    count by opcode)."""
+def sass_code(name):
+    """(address, opcode, operands) of each instruction of the last
+    function in ``cuobjdump -sass`` of kernel library ``name``."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    proc = subprocess.run([tool, "-sass", _build.library_path("sha256")],
+    proc = subprocess.run([tool, "-sass", _build.library_path(name)],
                           capture_output=True, text=True, timeout=120)
     check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr}")
     code = []
@@ -326,9 +356,26 @@ def sha_ops_per_block():
         m = _SASS_LINE.match(ln)
         if m:
             code.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    back = [(int(arg, 16), addr) for addr, op, arg in code
+    return code
+
+
+def sass_loops(code):
+    """(first, last) address of each loop: a backward branch and its
+    target."""
+    return [(int(arg, 16), addr) for addr, op, arg in code
             if op == "BRA" and re.fullmatch(r"0x[0-9a-f]+", arg.strip())
             and int(arg, 16) < addr]
+
+
+def sha_ops_per_block():
+    """K3's 32-bit integer operations per compressed block, from
+    ``cuobjdump -sass`` of the built library: the instructions between
+    the kernel's one backward branch and its target (the loop over a
+    row's blocks), of the kinds in ``SHA_SASS_OPS`` (``.X`` carry forms,
+    moves, loads, compares and branches left out). Returns (count, the
+    count by opcode)."""
+    code = sass_code("sha256")
+    back = sass_loops(code)
     check(len(back) == 1, f"K3's SASS has {len(back)} backward branches, "
           "not the one block loop")
     lo, hi = back[0]
@@ -339,6 +386,24 @@ def sha_ops_per_block():
     kinds = collections.Counter(_sass_kind(op) for op in body)
     counts = {k: kinds[k] for k in SHA_SASS_OPS}
     return sum(counts.values()), counts
+
+
+def k1_shuffle_loops():
+    """K1's loops that gather across lanes (the table build, a doubling,
+    an addition, the window), from its SASS: instructions a lane for one
+    pass, and of them IMAD.WIDE and SHFL. The ladder's doubling and
+    addition are the innermost two."""
+    code = sass_code("verify_cold")
+    out = []
+    for lo, hi in sass_loops(code):
+        body = [op for addr, op, _arg in code if lo <= addr <= hi]
+        shfl = sum(op.startswith("SHFL") for op in body)
+        if shfl:
+            out.append({"instructions": len(body), "shfl": shfl,
+                        "imad_wide": sum(op.startswith("IMAD.WIDE")
+                                         for op in body)})
+    check(out, "K1's SASS has no loop with shuffles")
+    return out
 
 
 def _sass_kind(op):
@@ -366,7 +431,8 @@ def phase_device():
 
 def phase_build(dev):
     """K1, K2, K3 and K5 with nvcc, the prep library and the host oracle
-    with g++, all six builds started together."""
+    with g++, all six builds started together. Returns K1's registers,
+    spills and shuffle loops."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(_build.LIBRARIES) + 2) as pool:
         jobs = [pool.submit(_build.library, name, dev)
@@ -384,7 +450,14 @@ def phase_build(dev):
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[build] {name} ptxas: {ln.strip()}")
-    return secs
+    k1 = {"ptxas": ptxas_usage("verify_cold", "verify_cold_kernel"),
+          "shuffle_loops": k1_shuffle_loops(),
+          "lanes_per_row": _build.library(
+              "verify_cold", dev).verify_cold_lanes_per_row()}
+    print(f"[build] K1 entry function: {k1['ptxas']}; "
+          f"{k1['lanes_per_row']} lanes a row; its loops with shuffles, one "
+          f"pass a lane: {k1['shuffle_loops']}")
+    return k1
 
 
 def timed_ms(fn, reps):
@@ -402,6 +475,37 @@ def timed_ms(fn, reps):
 def rows_to(dev, rows):
     return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                  for x in rows)
+
+
+def k1_launch(ops, threads):
+    """K1 on the CUDA operands ``ops`` at ``threads`` a block, launched
+    past its wrapper (the sweep's launches are not the main path's)."""
+    out = torch.empty((ops[0].shape[0],), dtype=torch.bool,
+                      device=ops[0].device)
+    _build.launch("verify_cold", ops, out, ops[0].shape[0], threads)
+    return out
+
+
+def ptxas_usage(name, kernel):
+    """Registers, stack frame and spill bytes of the entry function
+    ``kernel`` of library ``name``, from its ``-Xptxas -v`` log."""
+    log = _build.build_log(_build.library_path(name))
+    entry = re.search(r"Compiling entry function '(\w*" + kernel
+                      + r"\w*)'", log)
+    check(entry is not None, f"{name}: no entry function {kernel} in the "
+          "ptxas log")
+    sym = re.escape(entry.group(1))
+    props = re.search(r"Function properties for " + sym + r"\s+(\d+) bytes "
+                      r"stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                      r"spill loads", log)
+    regs = re.search(r"Compiling entry function '" + sym
+                      + r"'.*?Used (\d+) registers", log, re.S)
+    check(props is not None and regs is not None,
+          f"{name}: no register or spill line for {kernel}")
+    return {"registers": int(regs.group(1)),
+            "stack_bytes": int(props.group(1)),
+            "spill_store_bytes": int(props.group(2)),
+            "spill_load_bytes": int(props.group(3))}
 
 
 def phase_kernel_vs_plain(dev, rng):
@@ -422,9 +526,19 @@ def phase_kernel_vs_plain(dev, rng):
     err = float((got.int() - want.int()).abs().max())
     check(bad == 0, f"kernel and plain differ on {bad} of {len(rows[0])} "
           "rows")
-    print(f"[kernel-vs-plain] {len(rows[0])} rows, {int(got.sum())} True, "
-          f"0 differ (tolerance 0: bits)")
-    return len(rows[0]), err
+    compared, n_true = len(rows[0]), int(got.sum())
+    for n in RAGGED_ROWS:
+        ops = rows_to(dev, tuple(np.concatenate([x, x])[:n] for x in rows))
+        got = vk.verify_kernel(*ops)
+        want = vk.verify_kernel_plain(*ops)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        check(bad == 0, f"kernel and plain differ on {bad} of {n} rows")
+        compared += n
+    print(f"[kernel-vs-plain] {len(rows[0])} rows, {n_true} True, "
+          f"0 differ (tolerance 0: bits); and at the ragged sizes "
+          f"{RAGGED_ROWS} rows, 0 differ")
+    return compared, err
 
 
 def phase_txset(rng):
@@ -534,7 +648,8 @@ def main_path_rows(rng, items, b):
 
 def k1_against_plain(info, ops, label):
     """K1 and its plain version on the CUDA operands ``ops``: equal bits
-    on every row, both timed, and the bound. Returns ``(entry, err)``."""
+    on every row, both timed, and the bound. Returns ``(entry, err,
+    plain's bits)``."""
     b = ops[0].shape[0]
     got = vk.verify_kernel(*ops)
     want = vk.verify_kernel_plain(*ops)
@@ -545,28 +660,32 @@ def k1_against_plain(info, ops, label):
     ms = _event_ms(lambda: vk.verify_kernel(*ops), KERNEL_REPS)
     plain_ms = _event_ms(lambda: vk.verify_kernel_plain(*ops), 1)
     macs = cold_kernel_multiplies(ops[2].cpu(), ops[3].cpu())
+    executed = cold_kernel_executed(b)
     bound_ms, bound_by = bound(info, macs, IMAD_PER_CLOCK_PER_SM,
                                b * ROW_BYTES)
     print(f"[kernel-times] {label}: {b} rows ({int(got.sum())} True), "
           f"kernel = plain on every row; K1 {ms:.4f} ms, plain "
-          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-          f"({macs} 32x32->64 multiply-adds)")
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({macs} 32x32->64 "
+          f"multiply-adds of the function; the kernel executes {executed}, "
+          f"{executed / macs:.4f}x)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "multiply_adds": macs,
-            "rows_true": int(got.sum())}, err
+            "executed_multiply_adds": executed,
+            "rows_true": int(got.sum())}, err, want
 
 
 def phase_kernel_times(dev, rng, info, main_items):
     """K1 against its plain version, and both timed, at each bucket of the
     main path on rows built from that call's items. Returns the operands
-    too (bucket -> CUDA tensors), for phase 12."""
-    per_batch, compared, err, all_ops = {}, 0, 0.0, {}
+    too (bucket -> CUDA tensors), for phase 12, and plain's bits on them
+    (bucket -> bits), for the block sweep."""
+    per_batch, compared, err, all_ops, bits = {}, 0, 0.0, {}, {}
     for b in KERNEL_BATCHES:
         ops = all_ops[b] = rows_to(dev, main_path_rows(rng, main_items[b], b))
-        per_batch[str(b)], e = k1_against_plain(info, ops, f"B={b}")
+        per_batch[str(b)], e, bits[b] = k1_against_plain(info, ops, f"B={b}")
         compared += b
         err = max(err, e)
-    return per_batch, compared, err, all_ops
+    return per_batch, compared, err, all_ops, bits
 
 
 @contextlib.contextmanager
@@ -590,17 +709,48 @@ def cold_operands(v, into):
 def phase_hot_k1_times(info, recorded):
     """K1 against its plain version at the buckets the hot paths give it,
     on the operands those calls sent (``recorded``: label -> the launches
-    of one call)."""
-    per_batch, compared, err = {}, 0, 0.0
+    of one call). Returns plain's bits too (label -> bits)."""
+    per_batch, compared, err, bits = {}, 0, 0.0, {}
     for label, launches in recorded.items():
         check(len(launches) == 1, f"{label}: {len(launches)} K1 launches, "
               "not 1")
         ops = launches[0]
         key = f"{label}:{ops[0].shape[0]}"
-        per_batch[key], e = k1_against_plain(info, ops, key)
+        per_batch[key], e, bits[label] = k1_against_plain(info, ops, key)
         compared += ops[0].shape[0]
         err = max(err, e)
-    return per_batch, compared, err
+    return per_batch, compared, err, bits
+
+
+def phase_block_sweep(rows):
+    """K1 timed at each block size of ``K1_BLOCK_THREADS`` on the rows of
+    ``K1_SWEEP_ROWS`` (``rows``: row count -> (CUDA operands, plain's bits
+    on them, from phases 6 and 7)), its bits equal to plain's at every
+    block size."""
+    check(sorted(rows) == sorted(K1_SWEEP_ROWS) and all(
+        ops[0].shape[0] == b for b, (ops, _) in rows.items()),
+        "the sweep's rows are not the hot bucket and the cold buckets")
+    ms = {}
+    for threads in K1_BLOCK_THREADS:
+        for b in K1_SWEEP_ROWS:
+            ops, want = rows[b]
+            got = k1_launch(ops, threads)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K1 at {threads} threads a "
+                  f"block differs from plain at B={b}")
+            ms[f"{threads}:{b}"] = _event_ms(
+                lambda: k1_launch(ops, threads), KERNEL_REPS)
+    best = {b: min(K1_BLOCK_THREADS, key=lambda t: ms[f"{t}:{b}"])
+            for b in K1_SWEEP_ROWS}
+    print(f"[k1-block-sweep] K1 ms by threads a block (rows: "
+          f"{', '.join(map(str, K1_SWEEP_ROWS))}); the wrapper's "
+          f"{vk.COLD_BLOCK_THREADS}: "
+          + "; ".join(f"{t} threads " + " / ".join(
+              f"{ms[f'{t}:{b}']:.4f}" for b in K1_SWEEP_ROWS)
+              for t in K1_BLOCK_THREADS)
+          + f"; fastest {best}; bits equal to plain at every size")
+    return {"ms": ms, "wrapper_threads": vk.COLD_BLOCK_THREADS,
+            "fastest": {str(b): t for b, t in best.items()}}
 
 
 def cacheable_rows(items) -> int:
@@ -953,8 +1103,10 @@ def phase_radix_sweep(dev, rng, info, main_items):
         print(f"[radix-sweep] B={b}: K5 = plain on every row ({overflow} "
               f"rows with a top radix-16 digit above 8; {differ_k1} rows "
               f"whose bit differs from K1's, all of them overflow rows); "
-              f"K5 {ms:.4f} ms, K1 {k1_ms:.4f} ms on the same rows, "
-              f"K5/K1 {ms / k1_ms:.3f}; plain {plain_ms:.1f} ms, bound "
+              f"K5 (one thread a row) {ms:.4f} ms, K1 (four lanes a row) "
+              f"{k1_ms:.4f} ms on the same rows, K5/K1 {ms / k1_ms:.3f}: "
+              f"the ratio compares the two designs, not the two radices; "
+              f"plain {plain_ms:.1f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}; {macs} 32x32->64 "
               "multiply-adds)")
         check(differ_k1 <= overflow, f"B={b}: K5 and K1 differ on rows "
@@ -1249,7 +1401,7 @@ def main() -> int:
     info = phase_device()
     dev = resolve_device(None)
     rng = np.random.default_rng(SEED)
-    phase_build(dev)
+    k1_build = phase_build(dev)
     rows_compared, err = phase_kernel_vs_plain(dev, rng)
     vk.verify_kernel.launches = 0
     txset, txset_items, txset_want = phase_txset(rng)
@@ -1261,7 +1413,7 @@ def main() -> int:
           f"(no device fault, no audit mismatch, breakers closed); "
           f"{audited} parts audited clean at rate {batch_engine.AUDIT_RATE}")
     main_items = dict(zip(KERNEL_BATCHES, (txset_items, catchup_items)))
-    per_batch, compared, err6, k1_ops = phase_kernel_times(
+    per_batch, compared, err6, k1_ops, k1_bits = phase_kernel_times(
         dev, rng, info, main_items)
     vk.verify_kernel.launches = 0
     vk.verify_kernel_hot.launches = 0
@@ -1277,10 +1429,13 @@ def main() -> int:
     check_dispatch_clean([default_verifier()], "hot paths")
     print(f"[main-path] verify_hot launches: {hot_launches}; verify_cold "
           f"launches on the hot paths: {hot_k1_launches}; dispatch clean")
-    k1_hot, k1_hot_compared, k1_hot_err = phase_hot_k1_times(info,
-                                                             hot_k1_ops)
+    k1_hot, k1_hot_compared, k1_hot_err, hot_bits = phase_hot_k1_times(
+        info, hot_k1_ops)
     per_batch.update(k1_hot)
-    del hot_k1_ops
+    k1_sweep = phase_block_sweep({
+        128: (hot_k1_ops["hot_txset"][0], hot_bits["hot_txset"]),
+        **{b: (k1_ops[b], k1_bits[b]) for b in KERNEL_BATCHES}})
+    del hot_k1_ops, k1_bits, hot_bits
     hot_batch, hot_compared, hot_err = phase_hot_kernel_times(
         dev, rng, info, dict(zip(KERNEL_BATCHES, (txset_rows,
                                                   catchup_rows))))
@@ -1303,7 +1458,8 @@ def main() -> int:
                      launches, rows_compared + compared + k1_hot_compared,
                      max(err, err6, k1_hot_err), per_batch,
                      KERNEL_BATCHES[0], info["smi"],
-                     launches_hot_paths=hot_k1_launches),
+                     launches_hot_paths=hot_k1_launches,
+                     block_sweep=k1_sweep, **k1_build),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
                      hot_launches, hot_compared, hot_err, hot_batch,

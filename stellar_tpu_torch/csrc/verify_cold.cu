@@ -7,36 +7,60 @@
 //     decompress_ok(A) AND encode(s*B + h*(-A)) == R   (bytewise)
 // for every byte pattern; the host's policy gate is ANDed in afterwards.
 //
-// What bounds it: integer multiplies. A row costs about 3,600 field
-// multiplies (255 doublings, up to 104 mixed adds, a 16-entry table of -A
-// with its inversion, the square root of decompress, the final inversion),
-// each 55 or 100 32x32->64 multiply-adds, against 129 bytes of input and
-// output. The operations bound is the card's 32-bit integer multiply rate.
+// What bounds it on this card. The work is integer multiplies: a row is
+// about 1,530 field squarings (55 32x32->64 multiply-adds each) and 1,970
+// multiplies (100 each) against 129 bytes of input and output, so the
+// operations bound is the card's 32-bit integer multiply rate. What the
+// card runs is integer instructions, a few for each multiply-add (the
+// carries, the shuffles, the selects), issued by one scheduler a warp;
+// and a row is one long dependent chain (the square root of decompress,
+// 255 doublings, 104 additions, the final inversion), while a TxSet gives
+// only 2,048 rows. With one thread a row the card held 16 warps, each
+// running the whole chain, so 128 to 2,048 rows took the same time.
 //
-// Design (first, simple version): one thread per row, everything in the
-// thread's registers and local memory, nothing shared between rows but the
-// constants. Field elements are ref10's ten 25.5-bit limbs (fe25519.cuh).
-// The 16-entry affine B-table and the curve constants live in __constant__
-// memory (filled once from stellar_tpu_torch/state.py) and each block
-// stages them in shared memory, since the lanes of a warp pick different
-// entries. The per-row A-table (16 x 3 x 10 int32 = 1,920 B) sits in local
-// memory; its Z column is normalised by Montgomery's trick inside the
-// thread, one Fermat inversion for all 16 entries (the reference's
-// cross-lane product tree is a TPU device and is not needed here). Tables
-// are indexed directly by |digit|: verification data is public, and
-// libsodium's verify is itself variable-time. A zero digit skips its add.
+// Design: four lanes a row (ge25519_x4.cuh). Lane j of a group of four
+// owns coordinate j (X, Y, Z, T) of the accumulator, and each doubling or
+// addition is two rounds of four independent field products, one a lane,
+// with the operands gathered by __shfl_sync between rounds. That cuts the
+// ladder's chain from 255 x 8 + 104 x 7 products to 718 rounds, puts four
+// times as many warps on the card, and leaves a lane one field element of
+// state and a product's accumulators, not a whole point. The sums inside
+// a round are not carried (ge25519_x4.cuh states the bounds), which
+// leaves a round about 300 instructions a lane.
 //
-// One thread per row fills only 2,048 threads of the card's 132 SMs at a
-// 2k-signature TxSet: expected for a first, right kernel. Spreading a row
-// over a group of threads is later work.
+// * Decompress and the final encode (one square-root chain, one
+//   inversion) are one chain each; all four lanes compute them, in the
+//   time one would, and lane 0 stores the bit.
+// * The table of -A holds the multiples 0..16 in projective cached form
+//   (Y - X, Y + X, 2Z, 2dT), built by one doubling and 14 additions in
+//   four-lane rounds: no inversion. It lives in shared memory as
+//   [row][entry][component] (17 x 4 x 40 B = 2,720 B a row), each lane
+//   writing and reading its own component; a negative digit swaps
+//   components 0 and 1 and negates 3, so no lane needs a shuffle to read
+//   it. The affine B-table and the curve constants come from __constant__
+//   (filled once from stellar_tpu_torch/state.py); each block stages them
+//   in shared memory in the same layout, 2Z = 2.
+// * The ladder is Strauss-Shamir over signed radix-32 digits, 52 windows,
+//   and every window runs its s-add and h-add: a zero digit adds entry 0,
+//   the identity (1, 1, 2, 0). The formulas are complete, so that is
+//   exact, and no lane of a warp branches around a shuffle.
+// * A row past n runs row n - 1's operands (it must take part in every
+//   shuffle) and stores nothing.
+//
+// Tables are indexed directly by |digit|: verification data is public,
+// and libsodium's verify is itself variable-time.
 #include <stdint.h>
 
-#include "ge25519.cuh"
+#include "ge25519_x4.cuh"
 
 struct verify_consts {
   ge_consts c;
   ge_precomp base[16];  // v*B for v = 1..16
 };
+
+// Entries of a cached table (multiples 0..16) and its field elements.
+constexpr int kEntries = 17;
+constexpr int kTableFe = 4 * kEntries;
 
 // Signed radix-32 recode: 52 digits, least significant first, in [-16, 16)
 // except the top one, which keeps the last carry and is at most 2 for any
@@ -58,138 +82,170 @@ FE_FN void recode32(int8_t d[52], const uint8_t s[32]) {
   }
 }
 
-// Entry |digit| of a 16-entry table of multiples 1..16, negated for a
-// negative digit. digit != 0.
-FE_FN void table_select(ge_precomp& out, const ge_precomp* tab, int digit) {
-  const int m = digit < 0 ? -digit : digit;
-  out = tab[(m - 1) & 15];
-  if (digit < 0) ge_precomp_neg(out);
+// Element ``idx`` (entry idx / 4, component idx % 4) of the B-table in
+// cached form: entry 0 the identity, entry v the affine v*B as (y - x,
+// y + x, 2, 2dxy).
+FE_FN void stage_base(fe* btab, const verify_consts& K, int idx) {
+  const int k = idx >> 2, comp = idx & 3;
+  fe out;
+  x4_identity_cached(out, comp);
+  if (k > 0) {
+    const ge_precomp& e = K.base[k - 1];
+    if (comp == 0) out = e.yminusx;
+    if (comp == 1) out = e.yplusx;
+    if (comp == 3) out = e.xy2d;
+  }
+  btab[idx] = out;
 }
 
-// Affine cached multiples 1..16 of p (given extended, Z == 1). 4 sq and
-// 4 + 14 * 7 + 1 mul for the multiples, then 15 + 30 + 32 + 32 mul and one
-// fe_invert to normalise them.
-FE_CALL void build_table(ge_precomp tab[16], const ge_p3& p, const fe& d2) {
-  ge_precomp p1;
-  fe_add(p1.yplusx, p.Y, p.X);
-  fe_sub(p1.yminusx, p.Y, p.X);
-  fe_mul(p1.xy2d, p.T, d2);
-  // projective multiples: X, Y, Z parked in the entry's three slots
-  ge_p3 q = p;
-  ge_p1p1 t;
-  ge_p2 q2 = {p.X, p.Y, p.Z};
-  tab[0].yplusx = p.X;
-  tab[0].yminusx = p.Y;
-  tab[0].xy2d = p.Z;
-  ge_p2_dbl(t, q2);
-  ge_p1p1_to_p3(q, t);
-  tab[1].yplusx = q.X;
-  tab[1].yminusx = q.Y;
-  tab[1].xy2d = q.Z;
-  for (int k = 2; k < 16; ++k) {
-    ge_madd(t, q, p1);
-    ge_p1p1_to_p3(q, t);
-    tab[k].yplusx = q.X;
-    tab[k].yminusx = q.Y;
-    tab[k].xy2d = q.Z;
-  }
-  // Montgomery's trick over the 16 Z values
-  fe prefix[16];
-  prefix[0] = tab[0].xy2d;
-  for (int k = 1; k < 16; ++k) fe_mul(prefix[k], prefix[k - 1], tab[k].xy2d);
-  fe inv;
-  fe_invert(inv, prefix[15]);
-  for (int k = 15; k >= 0; --k) {
-    fe zinv, x, y;
-    if (k > 0) {
-      fe_mul(zinv, inv, prefix[k - 1]);
-      fe_mul(inv, inv, tab[k].xy2d);
-    } else {
-      zinv = inv;
-    }
-    fe_mul(x, tab[k].yplusx, zinv);
-    fe_mul(y, tab[k].yminusx, zinv);
-    fe_add(tab[k].yplusx, y, x);
-    fe_sub(tab[k].yminusx, y, x);
-    fe_mul(x, x, y);
-    fe_mul(tab[k].xy2d, x, d2);
-  }
-}
-
-// The device bit for one row.
-FE_FN int verify_row(const uint8_t a[32], const uint8_t r[32],
-                     const uint8_t s[32], const uint8_t h[32],
-                     const verify_consts& K) {
+// The device bit for one row, on ``L`` lanes starting at ``lane0`` (the
+// card: L = 1, this thread's lane; the host build: L = 4, the group's
+// lanes in turn). ``btab`` is the staged B-table, ``atab`` this row's
+// space for the table of -A, kTableFe elements each.
+template <int L>
+FE_FN int verify_row_lanes(int lane0, const uint8_t a[32],
+                           const uint8_t r[32], const uint8_t s[32],
+                           const uint8_t h[32], const ge_consts& c,
+                           const fe* btab, fe* atab) {
   ge_p3 nega;
-  const int ok = ge_frombytes_negate(nega, a, K.c);
-
-  ge_precomp atab[16];
-  build_table(atab, nega, K.c.d2);
-
+  const int ok = ge_frombytes_negate(nega, a, c);
   int8_t sd[52], hd[52];
   recode32(sd, s);
   recode32(hd, h);
 
-  // Strauss-Shamir over both scalars, most significant window first
-  ge_p3 acc;
-  ge_p3_0(acc);
-  ge_p1p1 t;
-  ge_precomp e;
+  fe own[L], q[L], op[L], p1[L], g[4];
+  // the table of -A: entries 0 (identity) and 1, then 2 by a doubling and
+  // 3..16 by adding entry 1
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    fe_pick4(own[j], lane0 + j, nega.X, nega.Y, nega.Z, nega.T);
+  x4_gather_xy<L>(g, own);
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int lane = lane0 + j;
+    x4_identity_cached(op[j], lane);
+    atab[lane] = op[j];
+    x4_to_cached(p1[j], lane, g, c.d2);
+    atab[4 + lane] = p1[j];
+    x4_dbl_r1(q[j], lane, g);
+  }
+  x4_gather<L>(g, q);
+#pragma unroll
+  for (int j = 0; j < L; ++j) x4_dbl_r2(own[j], lane0 + j, g);
+  for (int k = 2; k < kEntries; ++k) {
+    if (k > 2) {
+#pragma unroll
+      for (int j = 0; j < L; ++j) x4_add_r1(q[j], lane0 + j, g, p1[j]);
+      x4_gather<L>(g, q);
+#pragma unroll
+      for (int j = 0; j < L; ++j) x4_add_r2(own[j], lane0 + j, g);
+    }
+    x4_gather_xy<L>(g, own);
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      x4_to_cached(op[j], lane0 + j, g, c.d2);
+      atab[4 * k + lane0 + j] = op[j];
+    }
+  }
+  x4_sync();
+
+  // Strauss-Shamir over both scalars, most significant window first,
+  // from the identity (0, 1, 1, 0)
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int lane = lane0 + j;
+    fe_0(own[j]);
+    own[j].v[0] = lane == 1 || lane == 2;
+  }
   for (int w = 51; w >= 0; --w) {
-    if (w != 51) {
-      ge_p2 q = {acc.X, acc.Y, acc.Z};
-      for (int k = 0; k < 4; ++k) {
-        ge_p2_dbl(t, q);
-        ge_p1p1_to_p2(q, t);
+    const int doublings = w == 51 ? 0 : 5;
+    for (int i = 0; i < doublings; ++i) {
+      x4_gather_xy<L>(g, own);
+#pragma unroll
+      for (int j = 0; j < L; ++j) x4_dbl_r1(q[j], lane0 + j, g);
+      x4_gather<L>(g, q);
+#pragma unroll
+      for (int j = 0; j < L; ++j) x4_dbl_r2(own[j], lane0 + j, g);
+    }
+    // s*B, then h*(-A); a zero digit adds the identity
+    for (int t = 0; t < 2; ++t) {
+      const fe* tab = t ? atab : btab;
+      const int digit = t ? hd[w] : sd[w];
+      x4_gather_xy<L>(g, own);
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        x4_entry(op[j], lane0 + j, tab, digit);
+        x4_add_r1(q[j], lane0 + j, g, op[j]);
       }
-      ge_p2_dbl(t, q);
-      ge_p1p1_to_p3(acc, t);
-    }
-    if (sd[w]) {
-      table_select(e, K.base, sd[w]);
-      ge_madd(t, acc, e);
-      ge_p1p1_to_p3(acc, t);
-    }
-    if (hd[w]) {
-      table_select(e, atab, hd[w]);
-      ge_madd(t, acc, e);
-      ge_p1p1_to_p3(acc, t);
+      x4_gather<L>(g, q);
+#pragma unroll
+      for (int j = 0; j < L; ++j) x4_add_r2(own[j], lane0 + j, g);
     }
   }
 
+  x4_gather<L>(g, own);
+  const ge_p3 acc = {g[0], g[1], g[2], g[3]};
   return ok & ge_p3_encodes_to(acc, r);
 }
+
+#ifndef __CUDACC__
+// The kernel's bit for one row, its four lanes run in turn on the host.
+inline int verify_row_x4(const uint8_t a[32], const uint8_t r[32],
+                         const uint8_t s[32], const uint8_t h[32],
+                         const verify_consts& K) {
+  fe btab[kTableFe], atab[kTableFe];
+  for (int i = 0; i < kTableFe; ++i) stage_base(btab, K, i);
+  return verify_row_lanes<4>(0, a, r, s, h, K.c, btab, atab);
+}
+#endif
 
 #ifdef __CUDACC__
 #include "launch.cuh"
 
 __constant__ verify_consts g_consts;
 
-constexpr int kThreads = 128;
+// Lanes a row, and the most threads a block the launch takes (the
+// caller picks the block size: ops/verify.py, and the sweep in
+// chip_smoke.py).
+constexpr int kLanes = 4;
+constexpr int kMaxThreads = 128;
 
-__global__ void __launch_bounds__(kThreads)
+// Shared memory of a block of ``threads``: the B-table, the constants,
+// then one table of -A a row.
+static size_t smem_bytes(int threads) {
+  return sizeof(fe) * kTableFe * (1 + threads / kLanes) +
+         sizeof(ge_consts);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
 verify_cold_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ r,
                    const uint8_t* __restrict__ s, const uint8_t* __restrict__ h,
                    uint8_t* __restrict__ out, int n) {
-  __shared__ verify_consts K;
-  {
-    const int32_t* src = reinterpret_cast<const int32_t*>(&g_consts);
-    int32_t* dst = reinterpret_cast<int32_t*>(&K);
-    constexpr int words = sizeof(verify_consts) / sizeof(int32_t);
-    for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
-  }
+  extern __shared__ int4 smem[];
+  fe* btab = reinterpret_cast<fe*>(smem);
+  ge_consts* c = reinterpret_cast<ge_consts*>(btab + kTableFe);
+  fe* atab =
+      reinterpret_cast<fe*>(c + 1) + (threadIdx.x / kLanes) * kTableFe;
+  for (int i = threadIdx.x; i < kTableFe; i += blockDim.x)
+    stage_base(btab, g_consts, i);
+  if (threadIdx.x == 0) *c = g_consts.c;
   __syncthreads();
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  uint8_t ra[32], rr[32], rs[32], rh[32];
-  const size_t off = (size_t)row * 32;
-  for (int b = 0; b < 32; ++b) {
-    ra[b] = a[off + b];
-    rr[b] = r[off + b];
-    rs[b] = s[off + b];
-    rh[b] = h[off + b];
+
+  const int row = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
+  // a row past n runs row n - 1 so that its lanes join every shuffle
+  const size_t off = (size_t)(row < n ? row : n - 1) * 32;
+  alignas(16) uint8_t ra[32], rr[32], rs[32], rh[32];
+  // 16-byte loads: the wrapper passes 16-byte-aligned rows
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    reinterpret_cast<uint4*>(ra)[k] = reinterpret_cast<const uint4*>(a + off)[k];
+    reinterpret_cast<uint4*>(rr)[k] = reinterpret_cast<const uint4*>(r + off)[k];
+    reinterpret_cast<uint4*>(rs)[k] = reinterpret_cast<const uint4*>(s + off)[k];
+    reinterpret_cast<uint4*>(rh)[k] = reinterpret_cast<const uint4*>(h + off)[k];
   }
-  out[row] = (uint8_t)verify_row(ra, rr, rs, rh, K);
+  const int lane = threadIdx.x % kLanes;
+  const int bit = verify_row_lanes<1>(lane, ra, rr, rs, rh, *c, btab, atab);
+  if (lane == 0 && row < n) out[row] = (uint8_t)bit;
 }
 
 extern "C" {
@@ -198,23 +254,36 @@ extern "C" {
 int verify_cold_consts_bytes() { return (int)sizeof(verify_consts); }
 
 // Copy the constants (d, 2d, sqrt(-1), then 16 affine B entries; int32
-// limbs) from host memory to the card `device`. Returns a cudaError_t.
+// limbs) from host memory to the card `device`, and let the kernel take
+// the shared memory of its largest block there. Returns a cudaError_t.
 int verify_cold_set_consts(const void* host, int device) {
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
+  cudaError_t err = cudaFuncSetAttribute(
+      verify_cold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(kMaxThreads));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyToSymbol(g_consts, host, sizeof(verify_consts));
 }
 
-// Launch on `stream` of `device`; n rows of 32 bytes each, n bools out.
-// Returns cudaGetLastError() after the launch; does not synchronise.
+// Threads of the group that verifies one row.
+int verify_cold_lanes_per_row() { return kLanes; }
+
+// Launch on `stream` of `device`; n rows of 32 bytes each, n bools out,
+// `threads` a block (a multiple of 32 up to kMaxThreads). Returns
+// cudaGetLastError() after the launch; does not synchronise.
 int verify_cold_launch(const void* a, const void* r, const void* s,
-                       const void* h, void* out, int n, int device,
-                       void* stream) {
+                       const void* h, void* out, int n, int threads,
+                       int device, void* stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  verify_cold_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int rows = threads / kLanes;
+  const int blocks = (n + rows - 1) / rows;
+  verify_cold_kernel<<<blocks, threads, smem_bytes(threads),
+                       (cudaStream_t)stream>>>(
       (const uint8_t*)a, (const uint8_t*)r, (const uint8_t*)s,
       (const uint8_t*)h, (uint8_t*)out, n);
   return (int)cudaGetLastError();

@@ -52,8 +52,9 @@ class _Spec(NamedTuple):
 
 
 LIBRARIES = {
-    "verify_cold": _Spec(("verify_cold.cu", "ge25519.cuh", "fe25519.cuh",
-                          "launch.cuh"), "kernel_consts", 4, 0),
+    "verify_cold": _Spec(("verify_cold.cu", "ge25519_x4.cuh", "ge25519.cuh",
+                          "fe25519.cuh", "launch.cuh"), "kernel_consts", 4,
+                         1),
     "verify_hot": _Spec(("verify_hot.cu", "verify_hot.cuh", "ge25519.cuh",
                          "fe25519.cuh", "launch.cuh"),
                         "hot_kernel_consts", 4, 0),

@@ -28,7 +28,10 @@ afterwards.
 * :func:`verify_kernel`, :func:`verify_kernel_hot` and
   :func:`verify_kernel_r16` launch the hand-written CUDA kernels
   (``csrc/verify_cold.cu``, ``csrc/verify_hot.cu``, ``csrc/verify_r16.cu``)
-  for CUDA tensors and take the plain versions only for CPU tensors.
+  for CUDA tensors and take the plain versions only for CPU tensors. K1
+  runs four threads a row, one coordinate of the accumulator each, on the
+  two-round parallel Edwards formulas of ``csrc/ge25519_x4.cuh``; K2 and
+  K5 run one thread a row.
   ``.launches`` on each counts its kernel launches; on
   :func:`verify_kernel_sharded` it counts the calls of its callables that
   launched K1 on the card.
@@ -138,13 +141,17 @@ _HOT_SHAPES = ((torch.int16, (ed.TABLE_ENTRIES256, ed.AFFINE_COORDS,
                _ROW, _ROW, _ROW)
 
 
-def _verify(name, wrapper, plain, ops, shapes):
+# K1's threads a block, four a row: the pick of chip_smoke.py's sweep
+COLD_BLOCK_THREADS = 64
+
+
+def _verify(name, wrapper, plain, ops, shapes, *ints):
     dev, n = _build.check_operands(wrapper.__name__, ops, shapes)
     if dev.type == "cpu":
         return plain(*ops)
     out = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
-        _build.launch(name, ops, out, n)
+        _build.launch(name, ops, out, n, *ints)
         wrapper.launches += 1
     return out
 
@@ -152,11 +159,13 @@ def _verify(name, wrapper, plain, ops, shapes):
 def verify_kernel(a_bytes, r_bytes, s_bytes, h_bytes):
     """K1: (batch, 32) uint8 A, R, s, h -> (batch,) bool.
 
-    CUDA tensors launch ``csrc/verify_cold.cu`` on the current stream (no
-    synchronise); CPU tensors run :func:`verify_kernel_plain`; any other
-    device raises. A build or launch failure raises — nothing falls back."""
+    CUDA tensors launch ``csrc/verify_cold.cu`` (four threads a row) on
+    the current stream (no synchronise); CPU tensors run
+    :func:`verify_kernel_plain`; any other device raises. A build or
+    launch failure raises — nothing falls back."""
     return _verify("verify_cold", verify_kernel, verify_kernel_plain,
-                   (a_bytes, r_bytes, s_bytes, h_bytes), _COLD_SHAPES)
+                   (a_bytes, r_bytes, s_bytes, h_bytes), _COLD_SHAPES,
+                   COLD_BLOCK_THREADS)
 
 
 def verify_kernel_hot(a_table, r_bytes, s_bytes, h_bytes):

@@ -1,6 +1,7 @@
 """K1, K2, K3 and K5 on the card: each hand-written CUDA kernel against
 its plain PyTorch version on the same CUDA tensors, bit for bit and word
-for word (integer arithmetic, tolerance zero); K4 over the one card named
+for word (integer arithmetic, tolerance zero), K1 also at ragged sizes
+and at each block size it takes; K4 over the one card named
 four times against K1; and the batch verifier's (unsplit and split) and
 hasher's main paths through the kernels.
 
@@ -75,10 +76,29 @@ def test_kernel_matches_plain_on_edge_corpus(card):
     assert got[0] and got[-8:].all()
 
 
-@pytest.mark.parametrize("batch", [128, 2048])
+@pytest.mark.parametrize("batch", [128, 2048, 4096])
 def test_kernel_matches_plain_at_bucket(card, batch):
     got = _kernel_vs_plain(_rows(np.random.default_rng(62), batch), card)
     assert got.any() and not got.all()
+
+
+@pytest.mark.parametrize("batch", [1, 5, 127, 129, 2047])
+def test_kernel_matches_plain_at_ragged_size(card, batch):
+    """K1 runs four threads a row: rows past n inside a group and partial
+    warps still join every shuffle and store nothing."""
+    got = _kernel_vs_plain(_rows(np.random.default_rng(71), batch), card)
+    assert got[0]  # the edge corpus's first item is a good signature
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128])
+def test_kernel_matches_plain_at_each_block_size(card, threads):
+    ops = tuple(torch.from_numpy(x).to(card)
+                for x in _rows(np.random.default_rng(72), 129))
+    got = torch.empty((129,), dtype=torch.bool, device=card)
+    _build.launch("verify_cold", ops, got, 129, threads)
+    assert torch.equal(got, tvk.verify_kernel_plain(*ops))
+    with pytest.raises(RuntimeError):
+        _build.launch("verify_cold", ops, got, 129, 48)
 
 
 def test_kernel_rejects_bad_operands(card):
