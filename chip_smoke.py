@@ -14,8 +14,9 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 2. build   — K1 (``csrc/verify_cold.cu``), K2 (``csrc/verify_hot.cu``),
    K3 (``csrc/sha256.cu``) and K5 (``csrc/verify_r16.cu``) with nvcc, the
    SHA-512 prep library and the native host oracle with g++, the six
-   builds started together; build seconds, registers and spills (K1's
-   entry function parsed apart);
+   builds started together; build seconds, registers and spills (K1's and
+   K2's entry functions parsed apart), their SASS loops with shuffles and
+   the instructions of one squaring in their exponent chains;
 3. kernel against plain — K1 (four threads a row) and its plain PyTorch
    version on the same CUDA tensors (edge corpus, good signatures, rows
    whose device bit is True for arbitrary 256-bit scalars, random bytes):
@@ -54,7 +55,10 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    own padded rows with edge rows, matching rows whose top digit
    saturates the 128-entry select, and random R, s, h over real tables
    written over their head; K2 and its plain version give equal bits on
-   every row; K2's time, the plain version's and the bound;
+   every row; K2's time, the plain version's and the bound; K2 against
+   plain at the ragged sizes 1, 5, 127, 129 and 2,047 rows; then K2's
+   block-size sweep: 32, 64 and 128 threads a block at both buckets,
+   launched past the wrapper, equal to plain's bits, timed;
 10. hashing — ``default_hasher().hash_batch`` on 2,048 messages (0-503
    bytes, 2% oversize at 504-2,000 bytes), every digest equal to
    hashlib's; p50 and p90 of 20 calls beside hashlib's time for the same
@@ -147,13 +151,15 @@ TIMED_CALLS = 20
 CATCHUP_CALLS = 10
 KERNEL_BATCHES = (2048, 16384)  # the buckets of the TxSet and catchup calls
 KERNEL_REPS = 50
-# K1 against plain at ragged sizes too: rows past n inside a group of four
-# lanes, and shuffles in a partial warp
+# K1 and K2 against plain at ragged sizes too: rows past n inside a group
+# of four lanes, and shuffles in a partial warp
 RAGGED_ROWS = (1, 5, 127, 129, 2047)
-# the block sizes (threads a block, four a row) K1 is swept over, and the
-# row counts: the hot paths' bucket and the two cold buckets
-K1_BLOCK_THREADS = (32, 64, 128)
-K1_SWEEP_ROWS = (128,) + KERNEL_BATCHES
+# the block sizes (threads a block, four a row) K1 and K2 are swept over,
+# and the row counts: for K1 the hot paths' bucket and the two cold
+# buckets, for K2 the two hot buckets
+BLOCK_THREADS = (32, 64, 128)
+SWEEP_ROWS = {"verify_cold": (128,) + KERNEL_BATCHES,
+              "verify_hot": KERNEL_BATCHES}
 HASH_MSGS = 2048
 HASH_OVERSIZE_SHARE = 0.02
 HASH_CALLS = 20
@@ -205,9 +211,15 @@ _DOUBLING = (4, 3)
 # digit adding the identity, whatever the scalars
 _X4_DOUBLINGS = (51 * 5 * 4, 51 * 5 * 4)
 _X4_ADDS = (0, 52 * (_ADD_MULS + _CACHED_ADD_MULS))
-# K2 (csrc/verify_hot.cuh): 31 windows of 8 doublings, 4 sq each, with 3
-# muls to projective after 7 of them and 4 to extended after the 8th
-_HOT_DOUBLINGS = (31 * 8 * 4, 31 * (7 * 3 + 4))
+# K2 (csrc/verify_hot.cuh): the function's work is 8 doublings a window
+# below the most significant nonzero radix-256 digit of s or h, a mixed
+# add (7 mul, as above) for each nonzero digit, and encode. What the
+# four-lane kernel executes beyond that: all 31 windows of 8 doublings,
+# each making T, and both adds in every one of the 32 windows (lane 2's
+# product by the constant 2 not counted, as for K1)
+_HOT_WINDOW_DOUBLINGS = 8
+_X4_HOT_DOUBLINGS = (31 * 8 * 4, 31 * 8 * 4)
+_X4_HOT_ADDS = (0, 32 * 2 * _ADD_MULS)
 # K5 (csrc/verify_r16.cu): the A-table, 1 doubling (4 sq, 4 mul to
 # extended), 6 cached adds (4 mul + 4 to extended), 8 to-cached (1 mul);
 # 63 windows of 4 doublings, 3 muls to projective after 3 of them and 4 to
@@ -308,15 +320,31 @@ def cold_kernel_executed(rows: int) -> int:
 
 
 def hot_kernel_multiplies(s_bytes, h_bytes) -> int:
-    """32x32->64 multiply-adds that K2 executes for these rows: the fixed
-    doublings and encode, and one mixed add for each nonzero radix-256
-    digit. (batch, 32) uint8 CPU tensors in, a Python int out."""
-    nonzero = int((vk.signed_digits256(s_bytes) != 0).sum()
-                  + (vk.signed_digits256(h_bytes) != 0).sum())
-    sq = _HOT_DOUBLINGS[0] + _ENCODE[0]
-    mul = _HOT_DOUBLINGS[1] + _ENCODE[1]
-    return (s_bytes.shape[0] * (sq * FE_SQ_MACS + mul * FE_MUL_MACS)
-            + nonzero * _ADD_MULS * FE_MUL_MACS)
+    """32x32->64 multiply-adds of K2's function on these rows, for its
+    bound: encode; from the most significant nonzero radix-256 digit of s
+    or h down, 8 doublings a window; and a mixed add (7 multiplies) for
+    each nonzero digit. (batch, 32) uint8 CPU tensors in, a Python int
+    out."""
+    s_nz = vk.signed_digits256(s_bytes) != 0  # (32, batch), top first
+    h_nz = vk.signed_digits256(h_bytes) != 0
+    any_nz = s_nz | h_nz
+    top = torch.where(any_nz.any(0), 31 - any_nz.int().argmax(0), 0)
+    doublings = _HOT_WINDOW_DOUBLINGS * int(top.sum())
+    rows = s_bytes.shape[0]
+    sq = rows * _ENCODE[0] + doublings * _DOUBLING[0]
+    mul = (rows * _ENCODE[1] + doublings * _DOUBLING[1]
+           + int(s_nz.sum() + h_nz.sum()) * _ADD_MULS)
+    return sq * FE_SQ_MACS + mul * FE_MUL_MACS
+
+
+def hot_kernel_executed(rows: int) -> int:
+    """32x32->64 multiply-adds the four-lane K2 executes for ``rows`` rows,
+    each round's products counted once: every window adds both entries
+    (a zero digit the identity) and every doubling makes T. Does not
+    depend on the data."""
+    fixed = [_X4_HOT_DOUBLINGS, _X4_HOT_ADDS, _ENCODE]
+    return rows * (sum(f[0] for f in fixed) * FE_SQ_MACS
+                   + sum(f[1] for f in fixed) * FE_MUL_MACS)
 
 
 def r16_kernel_multiplies(s_bytes, h_bytes) -> int:
@@ -344,15 +372,20 @@ def bound(info, ops, ops_per_clock_per_sm, nbytes):
     return bytes_ms, "bytes"
 
 
-def sass_code(name):
-    """(address, opcode, operands) of each instruction of the last
-    function in ``cuobjdump -sass`` of kernel library ``name``."""
+def sass_code(name, function):
+    """(address, opcode, operands) of each instruction of the function
+    whose (mangled) name contains ``function`` in ``cuobjdump -sass`` of
+    kernel library ``name``."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     proc = subprocess.run([tool, "-sass", _build.library_path(name)],
                           capture_output=True, text=True, timeout=120)
     check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr}")
+    found = [part for part in proc.stdout.split("Function : ")[1:]
+             if function in part.splitlines()[0]]
+    check(len(found) == 1, f"{name}: {len(found)} SASS functions named "
+          f"like {function}")
     code = []
-    for ln in proc.stdout.split("Function : ")[-1].splitlines():
+    for ln in found[0].splitlines():
         m = _SASS_LINE.match(ln)
         if m:
             code.append((int(m.group(1), 16), m.group(2), m.group(3)))
@@ -374,7 +407,7 @@ def sha_ops_per_block():
     row's blocks), of the kinds in ``SHA_SASS_OPS`` (``.X`` carry forms,
     moves, loads, compares and branches left out). Returns (count, the
     count by opcode)."""
-    code = sass_code("sha256")
+    code = sass_code("sha256", "sha256_kernel")
     back = sass_loops(code)
     check(len(back) == 1, f"K3's SASS has {len(back)} backward branches, "
           "not the one block loop")
@@ -388,12 +421,12 @@ def sha_ops_per_block():
     return sum(counts.values()), counts
 
 
-def k1_shuffle_loops():
-    """K1's loops that gather across lanes (the table build, a doubling,
-    an addition, the window), from its SASS: instructions a lane for one
-    pass, and of them IMAD.WIDE and SHFL. The ladder's doubling and
-    addition are the innermost two."""
-    code = sass_code("verify_cold")
+def shuffle_loops(name, kernel):
+    """The loops of a four-lane kernel that gather across lanes (K1: the
+    table build, a doubling, an addition, the window; K2: a doubling, an
+    addition, the window), from its SASS: instructions a lane for one
+    pass, and of them IMAD.WIDE and SHFL."""
+    code = sass_code(name, kernel)
     out = []
     for lo, hi in sass_loops(code):
         body = [op for addr, op, _arg in code if lo <= addr <= hi]
@@ -402,8 +435,24 @@ def k1_shuffle_loops():
             out.append({"instructions": len(body), "shfl": shfl,
                         "imad_wide": sum(op.startswith("IMAD.WIDE")
                                          for op in body)})
-    check(out, "K1's SASS has no loop with shuffles")
+    check(out, f"{name}'s SASS has no loop with shuffles")
     return out
+
+
+def chain_squarings(name, kernel):
+    """Instructions a lane in each pass of the exponent chains' squaring
+    loops of kernel library ``name`` (``fe_sqn``: one ``fe_sq`` a pass, no
+    shuffle, 55 products), from its SASS, sorted."""
+    code = sass_code(name, kernel)
+    out = []
+    for lo, hi in sass_loops(code):
+        body = [op for addr, op, _arg in code if lo <= addr <= hi]
+        wide = sum(op.startswith("IMAD.WIDE") for op in body)
+        if 50 <= wide <= 60 and not any(op.startswith("SHFL")
+                                        for op in body):
+            out.append(len(body))
+    check(out, f"{name}'s SASS has no squaring loop")
+    return sorted(out)
 
 
 def _sass_kind(op):
@@ -431,8 +480,8 @@ def phase_device():
 
 def phase_build(dev):
     """K1, K2, K3 and K5 with nvcc, the prep library and the host oracle
-    with g++, all six builds started together. Returns K1's registers,
-    spills and shuffle loops."""
+    with g++, all six builds started together. Returns K1's and K2's
+    registers, spills, lanes a row and shuffle loops, by library name."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(_build.LIBRARIES) + 2) as pool:
         jobs = [pool.submit(_build.library, name, dev)
@@ -450,14 +499,23 @@ def phase_build(dev):
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[build] {name} ptxas: {ln.strip()}")
-    k1 = {"ptxas": ptxas_usage("verify_cold", "verify_cold_kernel"),
-          "shuffle_loops": k1_shuffle_loops(),
-          "lanes_per_row": _build.library(
-              "verify_cold", dev).verify_cold_lanes_per_row()}
-    print(f"[build] K1 entry function: {k1['ptxas']}; "
-          f"{k1['lanes_per_row']} lanes a row; its loops with shuffles, one "
-          f"pass a lane: {k1['shuffle_loops']}")
-    return k1
+    out = {}
+    for label, name in (("K1", "verify_cold"), ("K2", "verify_hot")):
+        kernel = f"{name}_kernel"
+        info = out[name] = {
+            "ptxas": ptxas_usage(name, kernel),
+            "shuffle_loops": shuffle_loops(name, kernel),
+            "chain_squaring_instructions": chain_squarings(name, kernel),
+            "lanes_per_row": getattr(_build.library(name, dev),
+                                     f"{name}_lanes_per_row")()}
+        print(f"[build] {label} entry function: {info['ptxas']}; "
+              f"{info['lanes_per_row']} lanes a row; its loops with "
+              f"shuffles, one pass a lane: {info['shuffle_loops']}; the "
+              f"exponent chains' squaring loops, instructions a pass (one "
+              f"squaring): {info['chain_squaring_instructions']}, beside "
+              f"the ladder's doubling pass above (one squaring, one "
+              f"multiply, the shuffles)")
+    return out
 
 
 def timed_ms(fn, reps):
@@ -477,12 +535,13 @@ def rows_to(dev, rows):
                  for x in rows)
 
 
-def k1_launch(ops, threads):
-    """K1 on the CUDA operands ``ops`` at ``threads`` a block, launched
-    past its wrapper (the sweep's launches are not the main path's)."""
+def launch_past_wrapper(name, ops, threads):
+    """Kernel library ``name`` (K1 or K2) on the CUDA operands ``ops`` at
+    ``threads`` a block, launched past its wrapper (the sweep's launches
+    are not the main path's)."""
     out = torch.empty((ops[0].shape[0],), dtype=torch.bool,
                       device=ops[0].device)
-    _build.launch("verify_cold", ops, out, ops[0].shape[0], threads)
+    _build.launch(name, ops, out, ops[0].shape[0], threads)
     return out
 
 
@@ -722,34 +781,36 @@ def phase_hot_k1_times(info, recorded):
     return per_batch, compared, err, bits
 
 
-def phase_block_sweep(rows):
-    """K1 timed at each block size of ``K1_BLOCK_THREADS`` on the rows of
-    ``K1_SWEEP_ROWS`` (``rows``: row count -> (CUDA operands, plain's bits
-    on them, from phases 6 and 7)), its bits equal to plain's at every
+def phase_block_sweep(name, rows, wrapper_threads):
+    """Kernel ``name`` (K1 or K2) timed at each block size of
+    ``BLOCK_THREADS`` on the rows of ``SWEEP_ROWS[name]`` (``rows``: row
+    count -> (CUDA operands, plain's bits on them, from the phases that
+    held the kernel against plain)), its bits equal to plain's at every
     block size."""
-    check(sorted(rows) == sorted(K1_SWEEP_ROWS) and all(
+    sizes = SWEEP_ROWS[name]
+    check(sorted(rows) == sorted(sizes) and all(
         ops[0].shape[0] == b for b, (ops, _) in rows.items()),
-        "the sweep's rows are not the hot bucket and the cold buckets")
+        f"{name}: the sweep's rows are not {sizes}")
     ms = {}
-    for threads in K1_BLOCK_THREADS:
-        for b in K1_SWEEP_ROWS:
+    for threads in BLOCK_THREADS:
+        for b in sizes:
             ops, want = rows[b]
-            got = k1_launch(ops, threads)
+            got = launch_past_wrapper(name, ops, threads)
             torch.cuda.synchronize()
-            check(torch.equal(got, want), f"K1 at {threads} threads a "
+            check(torch.equal(got, want), f"{name} at {threads} threads a "
                   f"block differs from plain at B={b}")
             ms[f"{threads}:{b}"] = _event_ms(
-                lambda: k1_launch(ops, threads), KERNEL_REPS)
-    best = {b: min(K1_BLOCK_THREADS, key=lambda t: ms[f"{t}:{b}"])
-            for b in K1_SWEEP_ROWS}
-    print(f"[k1-block-sweep] K1 ms by threads a block (rows: "
-          f"{', '.join(map(str, K1_SWEEP_ROWS))}); the wrapper's "
-          f"{vk.COLD_BLOCK_THREADS}: "
+                lambda: launch_past_wrapper(name, ops, threads), KERNEL_REPS)
+    best = {b: min(BLOCK_THREADS, key=lambda t: ms[f"{t}:{b}"])
+            for b in sizes}
+    print(f"[block-sweep] {name} ms by threads a block (rows: "
+          f"{', '.join(map(str, sizes))}); the wrapper's "
+          f"{wrapper_threads}: "
           + "; ".join(f"{t} threads " + " / ".join(
-              f"{ms[f'{t}:{b}']:.4f}" for b in K1_SWEEP_ROWS)
-              for t in K1_BLOCK_THREADS)
+              f"{ms[f'{t}:{b}']:.4f}" for b in sizes)
+              for t in BLOCK_THREADS)
           + f"; fastest {best}; bits equal to plain at every size")
-    return {"ms": ms, "wrapper_threads": vk.COLD_BLOCK_THREADS,
+    return {"ms": ms, "wrapper_threads": wrapper_threads,
             "fastest": {str(b): t for b, t in best.items()}}
 
 
@@ -905,11 +966,13 @@ def phase_hot_catchup(dev, rng, items, cold, bad, k1_ops):
 def phase_hot_kernel_times(dev, rng, info, main_rows):
     """K2 against its plain version, and both timed, at each bucket of the
     hot path, on that call's padded rows with edge, saturating matching
-    and random rows written over their head."""
+    and random rows written over their head; then at the ragged sizes,
+    on the head of the first bucket's rows. Returns the operands and
+    plain's bits at each bucket too, for the block sweep."""
     wl = Ed25519HotWorkload()
     # the table, R, s, h read once, one bool written
     row_bytes = TABLE_ENTRIES * HOT_ENTRY_BYTES + 3 * 32 + 1
-    per_batch, compared, err = {}, 0, 0.0
+    per_batch, compared, err, swept = {}, 0, 0.0, {}
     for b in KERNEL_BATCHES:
         rows = [x.copy() for x in main_rows[b]]
         edge = vectors.edge_corpus(rng)
@@ -936,6 +999,7 @@ def phase_hot_kernel_times(dev, rng, info, main_rows):
         ms = _event_ms(lambda: vk.verify_kernel_hot(*ops), KERNEL_REPS)
         plain_ms = _event_ms(lambda: vk.verify_kernel_hot_plain(*ops), 1)
         macs = hot_kernel_multiplies(s_cpu, h_cpu)
+        executed = hot_kernel_executed(b)
         bound_ms, bound_by = bound(info, macs, IMAD_PER_CLOCK_PER_SM,
                                    b * row_bytes)
         selected = int((vk.signed_digits256(h_cpu) != 0).sum()) * \
@@ -943,6 +1007,7 @@ def phase_hot_kernel_times(dev, rng, info, main_rows):
         per_batch[str(b)] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "multiply_adds": macs,
+            "executed_multiply_adds": executed,
             "rows_true": int(got.sum()), "rows_saturated": saturated,
             "bytes_shipped": b * row_bytes,
             "table_bytes_selected": selected}
@@ -950,9 +1015,24 @@ def phase_hot_kernel_times(dev, rng, info, main_rows):
               f"{saturated} with a top digit above 128), K2 = plain on "
               f"every row; K2 {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}; {macs} 32x32->64 "
-              f"multiply-adds; {b * row_bytes} B shipped, "
-              f"{selected / b:.0f} B a row of table entries selected)")
-    return per_batch, compared, err
+              f"multiply-adds of the function; the kernel executes "
+              f"{executed}, {executed / macs:.4f}x; {b * row_bytes} B "
+              f"shipped, {selected / b:.0f} B a row of table entries "
+              f"selected)")
+        swept[b] = (ops, want)
+    first = swept[KERNEL_BATCHES[0]][0]
+    for n in RAGGED_ROWS:
+        part = tuple(x[:n] for x in first)
+        got = vk.verify_kernel_hot(*part)
+        want = vk.verify_kernel_hot_plain(*part)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        check(bad == 0, f"K2 and plain differ on {bad} of {n} rows")
+        compared += n
+    print(f"[hot-kernel-times] and at the ragged sizes {RAGGED_ROWS} rows "
+          f"(rows past n inside a group of four lanes, partial warps), "
+          f"0 differ")
+    return per_batch, compared, err, swept
 
 
 def phase_hashing(dev, rng, info):
@@ -1401,7 +1481,7 @@ def main() -> int:
     info = phase_device()
     dev = resolve_device(None)
     rng = np.random.default_rng(SEED)
-    k1_build = phase_build(dev)
+    builds = phase_build(dev)
     rows_compared, err = phase_kernel_vs_plain(dev, rng)
     vk.verify_kernel.launches = 0
     txset, txset_items, txset_want = phase_txset(rng)
@@ -1432,14 +1512,17 @@ def main() -> int:
     k1_hot, k1_hot_compared, k1_hot_err, hot_bits = phase_hot_k1_times(
         info, hot_k1_ops)
     per_batch.update(k1_hot)
-    k1_sweep = phase_block_sweep({
+    k1_sweep = phase_block_sweep("verify_cold", {
         128: (hot_k1_ops["hot_txset"][0], hot_bits["hot_txset"]),
-        **{b: (k1_ops[b], k1_bits[b]) for b in KERNEL_BATCHES}})
+        **{b: (k1_ops[b], k1_bits[b]) for b in KERNEL_BATCHES}},
+        vk.COLD_BLOCK_THREADS)
     del hot_k1_ops, k1_bits, hot_bits
-    hot_batch, hot_compared, hot_err = phase_hot_kernel_times(
+    hot_batch, hot_compared, hot_err, k2_rows = phase_hot_kernel_times(
         dev, rng, info, dict(zip(KERNEL_BATCHES, (txset_rows,
                                                   catchup_rows))))
     del txset_rows, catchup_rows
+    k2_sweep = phase_block_sweep("verify_hot", k2_rows, vk.HOT_BLOCK_THREADS)
+    del k2_rows
     hashing = phase_hashing(dev, rng, info)
     check_dispatch_clean([default_hasher()], "hashing")
     r16_batch, r16_compared, r16_err, r16_launches = phase_radix_sweep(
@@ -1459,11 +1542,12 @@ def main() -> int:
                      max(err, err6, k1_hot_err), per_batch,
                      KERNEL_BATCHES[0], info["smi"],
                      launches_hot_paths=hot_k1_launches,
-                     block_sweep=k1_sweep, **k1_build),
+                     block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
                      hot_launches, hot_compared, hot_err, hot_batch,
-                     KERNEL_BATCHES[0], info["smi"]),
+                     KERNEL_BATCHES[0], info["smi"], block_sweep=k2_sweep,
+                     **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
                      hashing["launches"], hashing["rows_compared"],

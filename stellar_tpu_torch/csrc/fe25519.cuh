@@ -29,6 +29,19 @@ struct fe {
   int32_t v[10];
 };
 
+// An empty asm that the compiler must treat as changing ``x``, a 32-bit
+// register. fe_mul and fe_sq pass every input limb through it, so that
+// each 32x32->64 product compiles to one signed IMAD.WIDE. Without it the
+// exponent chains' products (fe_pow22501) compiled as 64-bit ones: the
+// limbs' sign words (SHF.R.S32.HI), IMAD.WIDE.U32 and two fix-up IMADs,
+// 353 instructions a squaring on sm_90a against 159 with the barrier, and
+// K1's registers went from 128 to 254. The host build needs none of it.
+#ifdef __CUDA_ARCH__
+#define FE_OPAQUE(x) asm("" : "+r"(x))
+#else
+#define FE_OPAQUE(x) (void)0
+#endif
+
 // Carry a wide accumulator into limb range: ref10's interleaved chain
 // (fe_mul's tail). Input limbs up to about 2^62 in magnitude.
 FE_FN void fe_carry_wide(fe& out, int64_t h[10]) {
@@ -97,7 +110,13 @@ FE_FN void fe_neg(fe& h, const fe& f) {
 // h = f * g: 100 products. Limb i times limb j lands on limb i+j; when both
 // i and j are odd the weights add to one more than limb i+j's, so f is
 // doubled; past limb 9 the product wraps by 2^255 == 19, so g is times 19.
-FE_FN void fe_mul(fe& h, const fe& f, const fe& g) {
+FE_FN void fe_mul(fe& h, const fe& f_in, const fe& g_in) {
+  fe f = f_in, g = g_in;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    FE_OPAQUE(f.v[i]);
+    FE_OPAQUE(g.v[i]);
+  }
   int32_t f2[10], g19[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
@@ -120,7 +139,10 @@ FE_FN void fe_mul(fe& h, const fe& f, const fe& g) {
 }
 
 // h = f^2: 55 products, the cross terms doubled once.
-FE_FN void fe_sq(fe& h, const fe& f) {
+FE_FN void fe_sq(fe& h, const fe& f_in) {
+  fe f = f_in;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) FE_OPAQUE(f.v[i]);
   int32_t f2[10], f4[10], f19[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
@@ -145,10 +167,12 @@ FE_FN void fe_sq(fe& h, const fe& f) {
   fe_carry_wide(h, acc);
 }
 
-// f^(2^n) by n squarings.
+// f^(2^n) by n squarings, one a pass of a loop the compiler keeps.
 FE_FN void fe_sqn(fe& h, const fe& f, int n) {
-  fe_sq(h, f);
-  for (int i = 1; i < n; ++i) fe_sq(h, h);
+  fe x = f;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) fe_sq(x, x);
+  h = x;
 }
 
 // Shared ref10 addition chain: t1 = z^(2^250-1), z11 = z^11.

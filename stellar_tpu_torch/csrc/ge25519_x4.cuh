@@ -159,6 +159,23 @@ FE_FN void x4_identity_cached(fe& out, int lane) {
   out.v[0] = lane == 2 ? 2 : (lane == 3 ? 0 : 1);
 }
 
+// Element ``idx`` (entry idx / 4, component idx % 4) of an affine table
+// in cached form, laid out [entry][component] for x4_entry: entry 0 the
+// identity, entry v the affine ``base[v - 1]`` = v*P as (y - x, y + x, 2,
+// 2dxy).
+FE_FN void x4_stage_affine(fe* tab, const ge_precomp* base, int idx) {
+  const int k = idx >> 2, comp = idx & 3;
+  fe out;
+  x4_identity_cached(out, comp);
+  if (k > 0) {
+    const ge_precomp& e = base[k - 1];
+    if (comp == 0) out = e.yminusx;
+    if (comp == 1) out = e.yplusx;
+    if (comp == 3) out = e.xy2d;
+  }
+  tab[idx] = out;
+}
+
 // The gather. ``L`` is the number of lanes one thread runs: 1 on the card
 // (this thread is lane ``lane0``), 4 in the host build (lanes 0..3 in
 // turn, ``own[j]`` lane j's value).

@@ -82,22 +82,6 @@ FE_FN void recode32(int8_t d[52], const uint8_t s[32]) {
   }
 }
 
-// Element ``idx`` (entry idx / 4, component idx % 4) of the B-table in
-// cached form: entry 0 the identity, entry v the affine v*B as (y - x,
-// y + x, 2, 2dxy).
-FE_FN void stage_base(fe* btab, const verify_consts& K, int idx) {
-  const int k = idx >> 2, comp = idx & 3;
-  fe out;
-  x4_identity_cached(out, comp);
-  if (k > 0) {
-    const ge_precomp& e = K.base[k - 1];
-    if (comp == 0) out = e.yminusx;
-    if (comp == 1) out = e.yplusx;
-    if (comp == 3) out = e.xy2d;
-  }
-  btab[idx] = out;
-}
-
 // The device bit for one row, on ``L`` lanes starting at ``lane0`` (the
 // card: L = 1, this thread's lane; the host build: L = 4, the group's
 // lanes in turn). ``btab`` is the staged B-table, ``atab`` this row's
@@ -194,7 +178,7 @@ inline int verify_row_x4(const uint8_t a[32], const uint8_t r[32],
                          const uint8_t s[32], const uint8_t h[32],
                          const verify_consts& K) {
   fe btab[kTableFe], atab[kTableFe];
-  for (int i = 0; i < kTableFe; ++i) stage_base(btab, K, i);
+  for (int i = 0; i < kTableFe; ++i) x4_stage_affine(btab, K.base, i);
   return verify_row_lanes<4>(0, a, r, s, h, K.c, btab, atab);
 }
 #endif
@@ -227,7 +211,7 @@ verify_cold_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ r,
   fe* atab =
       reinterpret_cast<fe*>(c + 1) + (threadIdx.x / kLanes) * kTableFe;
   for (int i = threadIdx.x; i < kTableFe; i += blockDim.x)
-    stage_base(btab, g_consts, i);
+    x4_stage_affine(btab, g_consts.base, i);
   if (threadIdx.x == 0) *c = g_consts.c;
   __syncthreads();
 

@@ -11,27 +11,48 @@
 // operand: the affine cached multiples 1..128 of -A in canonical 13-bit
 // limbs.
 //
-// What bounds it: integer multiplies. A row costs about 1,250 squarings
-// and 790 multiplies (248 doublings, the final inversion) plus 7
-// multiplies for each nonzero digit (up to 64), each product 55 or 100
-// 32x32->64 multiply-adds, about 190k in all. Its operands are 15,457
+// What bounds it: integer multiplies. The function's work is about 1,250
+// squarings and 760 multiplies a row (248 doublings, the final inversion)
+// plus 7 multiplies for each nonzero digit (up to 64), each product 55 or
+// 100 32x32->64 multiply-adds, about 190k in all. Its operands are 15,457
 // bytes a row (the table, R, s, h and the bit); it reads only the table
-// entries its digits select, at most 64 of 120 bytes each. The operations
-// bound is the card's 32-bit integer multiply rate; the bytes bound is
-// below it.
+// entries its digits select, 40 bytes a lane of each. The operations bound
+// is the card's 32-bit integer multiply rate; the bytes bound is below it.
+// What the card runs is integer instructions issued by one scheduler a
+// warp, along one long dependent chain a row (248 doublings, 64 additions,
+// the final inversion), and a TxSet gives only 2,048 rows.
 //
-// Design (first, simple version): one thread per row, as K1. The
-// 128-entry B-table and d, 2d sit in __constant__ memory (filled once
-// from stellar_tpu_torch/state.py) and each block stages them, 15,440
-// bytes, in shared memory: the lanes of a warp pick different entries.
-// The A entries are read from the row's own table in device memory, only
-// the one each nonzero digit selects, and converted from twenty 13-bit
-// limbs to ref10's ten 25.5-bit limbs as they are read. The signed
-// radix-256 recode uses the bytes as windows; a top digit above 128 (a
-// top byte of s or h at 0x81 or above, or 0x80 with a carry into it)
-// selects entry 128, as the reference's select does, so the raw bit
-// matches on every row. No decompression: cache membership is its proof.
-// A zero digit skips its add.
+// Design: four lanes a row, as K1 (csrc/verify_cold.cu), on
+// ge25519_x4.cuh's two-round formulas. Lane j of a group of four owns
+// coordinate j (X, Y, Z, T) of the accumulator; a doubling or an addition
+// is two rounds of four field products, one a lane, with __shfl_sync
+// gathers between them. That cuts a row's chain from about 2,580 field
+// products to about 890 latencies (624 ladder rounds, the encode's 267)
+// and puts four times the warps on the card.
+// * The ladder is Strauss-Shamir over the signed radix-256 digits (the
+//   bytes), 32 windows, 8 doublings a window below the top one; every
+//   window runs its s-add and h-add, a zero digit adding the identity's
+//   cached entry by a select, so no lane branches around a shuffle.
+// * The 128 affine B entries and d, 2d sit in __constant__ memory (filled
+//   once from stellar_tpu_torch/state.py); each block stages the entries
+//   in shared memory in cached form [entry][component], entry 0 the
+//   identity and 2Z = 2 (129 x 4 x 40 B = 20,640 B a block): the lanes of
+//   a warp pick different entries.
+// * The -A entry comes straight from the row's table in device memory:
+//   each lane reads only its own component, 40 bytes as five 8-byte
+//   loads, and converts it from twenty 13-bit limbs to ref10's ten (lane 2
+//   reads nothing: 2 Z2 = 2). A negative digit swaps the lanes' components
+//   0 and 1 and negates lane 3's, so the operand keeps the cache's layout.
+//   A window's loads are issued before its 8 doublings, whose 16 rounds
+//   hide their latency.
+// * The signed radix-256 recode uses the bytes as windows; a top digit
+//   above 128 (a top byte of s or h at 0x81 or above, or 0x80 with a carry
+//   into it) takes entry 128, as the reference's select does, so the raw
+//   bit matches on every row.
+// * The final encode (one inversion) runs on all four lanes, in the time
+//   one would; lane 0 stores the bit. A row past n runs row n - 1's
+//   operands (it must take part in every shuffle) and stores nothing.
+// No decompression: cache membership is its proof.
 #include <stdint.h>
 
 #include "verify_hot.cuh"
@@ -41,32 +62,39 @@
 
 __constant__ verify_hot_consts g_hot_consts;
 
-constexpr int kThreads = 128;
+// Lanes a row, and the most threads a block the launch takes (the caller
+// picks the block size: ops/verify.py, and the sweep in chip_smoke.py).
+constexpr int kLanes = 4;
+constexpr int kMaxThreads = 128;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 verify_hot_kernel(const int16_t* __restrict__ tab,
                   const uint8_t* __restrict__ r, const uint8_t* __restrict__ s,
                   const uint8_t* __restrict__ h, uint8_t* __restrict__ out,
                   int n) {
-  __shared__ verify_hot_consts K;
-  {
-    const int32_t* src = reinterpret_cast<const int32_t*>(&g_hot_consts);
-    int32_t* dst = reinterpret_cast<int32_t*>(&K);
-    constexpr int words = sizeof(verify_hot_consts) / sizeof(int32_t);
-    for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
-  }
+  __shared__ fe btab[kHotTableFe];
+  for (int i = threadIdx.x; i < kHotTableFe; i += blockDim.x)
+    x4_stage_affine(btab, g_hot_consts.base, i);
   __syncthreads();
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  uint8_t rr[32], rs[32], rh[32];
-  const size_t off = (size_t)row * 32;
-  for (int b = 0; b < 32; ++b) {
-    rr[b] = r[off + b];
-    rs[b] = s[off + b];
-    rh[b] = h[off + b];
+
+  const int row = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
+  // a row past n runs row n - 1 so that its lanes join every shuffle
+  const size_t src = (size_t)(row < n ? row : n - 1);
+  alignas(16) uint8_t rr[32], rs[32], rh[32];
+  // 16-byte loads: the wrapper passes 16-byte-aligned rows
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    reinterpret_cast<uint4*>(rr)[k] =
+        reinterpret_cast<const uint4*>(r + src * 32)[k];
+    reinterpret_cast<uint4*>(rs)[k] =
+        reinterpret_cast<const uint4*>(s + src * 32)[k];
+    reinterpret_cast<uint4*>(rh)[k] =
+        reinterpret_cast<const uint4*>(h + src * 32)[k];
   }
-  out[row] = (uint8_t)verify_hot_row(tab + (size_t)row * kTableLimbs, rr,
-                                     rs, rh, K);
+  const int lane = threadIdx.x % kLanes;
+  const int bit = verify_hot_row_lanes<1>(lane, tab + src * kTableLimbs, rr,
+                                          rs, rh, btab);
+  if (lane == 0 && row < n) out[row] = (uint8_t)bit;
 }
 
 extern "C" {
@@ -83,17 +111,24 @@ int verify_hot_set_consts(const void* host, int device) {
                                  sizeof(verify_hot_consts));
 }
 
+// Threads of the group that verifies one row.
+int verify_hot_lanes_per_row() { return kLanes; }
+
 // Launch on `stream` of `device`: n rows of a (128, 3, 20) int16 table and
-// 32 bytes each of R, s, h; n bools out. Returns cudaGetLastError() after
-// the launch; does not synchronise.
+// 32 bytes each of R, s, h; n bools out; `threads` a block (a multiple of
+// 32 up to kMaxThreads). Returns cudaGetLastError() after the launch; does
+// not synchronise.
 int verify_hot_launch(const void* table, const void* r, const void* s,
-                      const void* h, void* out, int n, int device,
-                      void* stream) {
+                      const void* h, void* out, int n, int threads,
+                      int device, void* stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  verify_hot_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const int rows = threads / kLanes;
+  const int blocks = (n + rows - 1) / rows;
+  verify_hot_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int16_t*)table, (const uint8_t*)r, (const uint8_t*)s,
       (const uint8_t*)h, (uint8_t*)out, n);
   return (int)cudaGetLastError();

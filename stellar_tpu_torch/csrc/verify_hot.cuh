@@ -1,14 +1,34 @@
-// K2's per-row arithmetic: the hot-signer verify of one row, for one CUDA
-// thread. Everything here also compiles as host C++ (FE_FN / FE_CALL set
-// to plain functions), which is how the CPU tests run it.
+// K2's per-row arithmetic on ge25519_x4.cuh's four lanes: the hot-signer
+// verify of one row. Everything here also compiles as host C++ (FE_FN /
+// FE_CALL set to plain functions, the four lanes run in turn), which is
+// how the CPU tests run it.
+//
+// Bounds (ge25519_x4.cuh:42-56 states the three-unit bound of a round's
+// uncarried products; a unit is a carried limb's bound, 2^25 + 20 even,
+// 2^24 + 2^15 odd). An addition's round 1 multiplies this lane's operand
+// component by a gathered value of at most two units (Y1 - X1 or Y1 + X1,
+// each the sum of two carried coordinates) or one (Z1, T1). The operand
+// comes from two places:
+// * an entry of the row's table: twenty canonical 13-bit limbs of a value
+//   below p, which fe_from_limbs13 packs exactly into limbs of [0, 2^26)
+//   (even) and [0, 2^25) (odd), two units; lane 3's negation for a
+//   negative digit has the same magnitudes;
+// * an entry of the B-table: the canonical limbs of hot_kernel_consts
+//   (stellar_tpu_torch/state.py), two units; the identity's and lane 2's
+//   constants, 0, 1 and 2.
+// So both factors of every product stay within two units, inside the three
+// the header allows. tests/test_torch_hot.py holds the add of an operand
+// entry, at the canonical extremes too, against ref10's ge_madd.
 #pragma once
 #include <string.h>
 
-#include "ge25519.cuh"
+#include "ge25519_x4.cuh"
 
 constexpr int kHotEntries = 128;          // multiples 1..128 in a table
 constexpr int kEntryLimbs = 3 * 20;       // (y+x, y-x, 2dxy), 13-bit limbs
 constexpr int kTableLimbs = kHotEntries * kEntryLimbs;
+// the staged B-table: entries 0 (the identity) to 128, four components each
+constexpr int kHotTableFe = 4 * (kHotEntries + 1);
 
 struct verify_hot_consts {
   fe d, d2;
@@ -32,12 +52,10 @@ FE_FN void recode256(int16_t d[32], const uint8_t s[32]) {
   }
 }
 
-// Index of entry min(|digit|, 128) in a table of multiples 1..128. A top
-// digit above 128 saturates at the last entry, as the reference's select
-// tree does. digit != 0.
-FE_FN int hot_entry(int digit) {
-  const int m = digit < 0 ? -digit : digit;
-  return (m > kHotEntries ? kHotEntries : m) - 1;
+// A digit with a top value above 128 saturated at 128, as the reference's
+// select tree does: the entry a table of multiples 0..128 is read at.
+FE_FN int hot_saturate(int digit) {
+  return digit > kHotEntries ? kHotEntries : digit;
 }
 
 // One coordinate: twenty canonical 13-bit limbs, packed four to a 64-bit
@@ -60,62 +78,115 @@ FE_FN void fe_from_limbs13(fe& h, const uint64_t w[5]) {
   }
 }
 
-// Entry `index` of the row's int16 table, read as fifteen 8-byte words
-// (the table and each entry's 120 bytes are 8-byte aligned).
-FE_FN void load_hot_entry(ge_precomp& q, const int16_t* table, int index) {
-  const uint64_t* src =
-      reinterpret_cast<const uint64_t*>(table + index * kEntryLimbs);
-  uint64_t w[15];
+// This lane's 40 bytes of the row's table for ``digit``, as five 8-byte
+// words: the component of entry |digit| (saturated) that the lane's cached
+// component comes from. The table's order is (Y + X, Y - X, 2dT) and -P
+// swaps the first two: lane 0 (Y2 - X2) reads component 1, or 0 for a
+// negative digit; lane 1 (Y2 + X2) component 0, or 1; lane 3 component 2.
+// Lane 2 (2 Z2 = 2) and a zero digit read nothing. The table and each
+// entry's 120 bytes are 8-byte aligned.
+FE_FN void hot_load(uint64_t w[5], const int16_t* atab, int lane,
+                    int digit) {
+  const int neg = digit < 0;
+  const int m = hot_saturate(neg ? -digit : digit);
+  const int comp = lane == 3 ? 2 : ((lane == 0) != neg);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) w[k] = 0;
+  if (lane == 2 || m == 0) return;
+  const uint64_t* src = reinterpret_cast<const uint64_t*>(
+      atab + (m - 1) * kEntryLimbs + comp * 20);
 #ifdef __CUDA_ARCH__
 #pragma unroll
-  for (int k = 0; k < 15; ++k)
+  for (int k = 0; k < 5; ++k)
     w[k] = __ldg(reinterpret_cast<const unsigned long long*>(src) + k);
 #else
-  memcpy(w, src, sizeof(w));
+  memcpy(w, src, 5 * sizeof(uint64_t));
 #endif
-  fe_from_limbs13(q.yplusx, w);
-  fe_from_limbs13(q.yminusx, w + 5);
-  fe_from_limbs13(q.xy2d, w + 10);
 }
 
-// The device bit for one hot row: encode(s*B + h*(-A)) == R, with -A's
-// multiples from the row's cached table (kTableLimbs int16, canonical).
-// There is no decompression: cache membership is its proof.
-FE_FN int verify_hot_row(const int16_t* atab, const uint8_t r[32],
-                         const uint8_t s[32], const uint8_t h[32],
-                         const verify_hot_consts& K) {
+// This lane's cached component of -A's entry for ``digit`` from the words
+// hot_load read: lane 3 negates for a negative digit; lane 2 and a zero
+// digit take the identity's (selects, not branches).
+FE_FN void hot_entry_lane(fe& out, int lane, const uint64_t w[5],
+                          int digit) {
+  fe v, minus, id;
+  fe_from_limbs13(v, w);
+  fe_neg(minus, v);
+  x4_identity_cached(id, lane);
+  if (lane == 3 && digit < 0) v = minus;
+  if (lane == 2 || digit == 0) v = id;
+  out = v;
+}
+
+// The device bit for one hot row, encode(s*B + h*(-A)) == R, on ``L``
+// lanes starting at ``lane0`` (the card: L = 1, this thread's lane; the
+// host build: L = 4, the group's lanes in turn). ``atab`` is the row's
+// table of -A (kTableLimbs int16, canonical), ``btab`` the staged B-table
+// (kHotTableFe elements). There is no decompression: cache membership is
+// its proof.
+template <int L>
+FE_FN int verify_hot_row_lanes(int lane0, const int16_t* atab,
+                               const uint8_t r[32], const uint8_t s[32],
+                               const uint8_t h[32], const fe* btab) {
   int16_t sd[32], hd[32];
   recode256(sd, s);
   recode256(hd, h);
 
-  // Strauss-Shamir over both scalars, most significant window first: 31
-  // windows of 8 doublings, an add for each nonzero digit.
-  ge_p3 acc;
-  ge_p3_0(acc);
-  ge_p1p1 t;
-  ge_precomp e;
-  for (int w = 31; w >= 0; --w) {
-    if (w != 31) {
-      ge_p2 q = {acc.X, acc.Y, acc.Z};
-      for (int k = 0; k < 7; ++k) {
-        ge_p2_dbl(t, q);
-        ge_p1p1_to_p2(q, t);
+  // Strauss-Shamir over both scalars, most significant window first, from
+  // the identity (0, 1, 1, 0): 31 windows of 8 doublings, and every
+  // window adds an entry of B and one of -A (a zero digit adds the
+  // identity)
+  fe own[L], q[L], op[L], g[4];
+  uint64_t w[L][5];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int lane = lane0 + j;
+    fe_0(own[j]);
+    own[j].v[0] = lane == 1 || lane == 2;
+  }
+  for (int win = 31; win >= 0; --win) {
+    const int sdig = sd[win], hdig = hd[win];
+    // the -A entry's loads first: their latency hides behind the doublings
+#pragma unroll
+    for (int j = 0; j < L; ++j) hot_load(w[j], atab, lane0 + j, hdig);
+    const int doublings = win == 31 ? 0 : 8;
+    for (int i = 0; i < doublings; ++i) {
+      x4_gather_xy<L>(g, own);
+#pragma unroll
+      for (int j = 0; j < L; ++j) x4_dbl_r1(q[j], lane0 + j, g);
+      x4_gather<L>(g, q);
+#pragma unroll
+      for (int j = 0; j < L; ++j) x4_dbl_r2(own[j], lane0 + j, g);
+    }
+    for (int t = 0; t < 2; ++t) {
+      x4_gather_xy<L>(g, own);
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        const int lane = lane0 + j;
+        if (t)
+          hot_entry_lane(op[j], lane, w[j], hdig);
+        else
+          x4_entry(op[j], lane, btab, hot_saturate(sdig));
+        x4_add_r1(q[j], lane, g, op[j]);
       }
-      ge_p2_dbl(t, q);
-      ge_p1p1_to_p3(acc, t);
-    }
-    if (sd[w]) {
-      e = K.base[hot_entry(sd[w])];
-      if (sd[w] < 0) ge_precomp_neg(e);
-      ge_madd(t, acc, e);
-      ge_p1p1_to_p3(acc, t);
-    }
-    if (hd[w]) {
-      load_hot_entry(e, atab, hot_entry(hd[w]));
-      if (hd[w] < 0) ge_precomp_neg(e);
-      ge_madd(t, acc, e);
-      ge_p1p1_to_p3(acc, t);
+      x4_gather<L>(g, q);
+#pragma unroll
+      for (int j = 0; j < L; ++j) x4_add_r2(own[j], lane0 + j, g);
     }
   }
+
+  x4_gather<L>(g, own);
+  const ge_p3 acc = {g[0], g[1], g[2], g[3]};
   return ge_p3_encodes_to(acc, r);
 }
+
+#ifndef __CUDACC__
+// The kernel's bit for one row, its four lanes run in turn on the host.
+inline int verify_hot_row_x4(const int16_t* atab, const uint8_t r[32],
+                             const uint8_t s[32], const uint8_t h[32],
+                             const verify_hot_consts& K) {
+  fe btab[kHotTableFe];
+  for (int i = 0; i < kHotTableFe; ++i) x4_stage_affine(btab, K.base, i);
+  return verify_hot_row_lanes<4>(0, atab, r, s, h, btab);
+}
+#endif

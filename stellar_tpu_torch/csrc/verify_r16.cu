@@ -19,7 +19,7 @@
 // output a row. The operations bound is the card's 32-bit integer
 // multiply rate.
 //
-// Design (first, simple version): one thread per row, as K1. Field
+// Design (first, simple version): one thread per row. Field
 // elements are ref10's ten 25.5-bit limbs (fe25519.cuh). The 8-entry
 // affine B-table and the curve constants live in __constant__ memory
 // (filled once from stellar_tpu_torch/state.py) and each block stages

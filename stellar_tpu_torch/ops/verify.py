@@ -29,9 +29,9 @@ afterwards.
   :func:`verify_kernel_r16` launch the hand-written CUDA kernels
   (``csrc/verify_cold.cu``, ``csrc/verify_hot.cu``, ``csrc/verify_r16.cu``)
   for CUDA tensors and take the plain versions only for CPU tensors. K1
-  runs four threads a row, one coordinate of the accumulator each, on the
-  two-round parallel Edwards formulas of ``csrc/ge25519_x4.cuh``; K2 and
-  K5 run one thread a row.
+  and K2 run four threads a row, one coordinate of the accumulator each,
+  on the two-round parallel Edwards formulas of ``csrc/ge25519_x4.cuh``;
+  K5 runs one thread a row.
   ``.launches`` on each counts its kernel launches; on
   :func:`verify_kernel_sharded` it counts the calls of its callables that
   launched K1 on the card.
@@ -141,8 +141,11 @@ _HOT_SHAPES = ((torch.int16, (ed.TABLE_ENTRIES256, ed.AFFINE_COORDS,
                _ROW, _ROW, _ROW)
 
 
-# K1's threads a block, four a row: the pick of chip_smoke.py's sweep
+# K1's and K2's threads a block, four a row: the picks of chip_smoke.py's
+# sweeps (K1 flat from 64 up; K2 fastest at 128, its staged B-table shared
+# by 32 rows)
 COLD_BLOCK_THREADS = 64
+HOT_BLOCK_THREADS = 128
 
 
 def _verify(name, wrapper, plain, ops, shapes, *ints):
@@ -172,12 +175,13 @@ def verify_kernel_hot(a_table, r_bytes, s_bytes, h_bytes):
     """K2: (batch, 128, 3, 20) int16 table of -A, (batch, 32) uint8 R, s,
     h -> (batch,) bool.
 
-    CUDA tensors launch ``csrc/verify_hot.cu`` on the current stream (no
-    synchronise); CPU tensors run :func:`verify_kernel_hot_plain`; any
-    other device raises. A build or launch failure raises — nothing falls
-    back."""
+    CUDA tensors launch ``csrc/verify_hot.cu`` (four threads a row) on
+    the current stream (no synchronise); CPU tensors run
+    :func:`verify_kernel_hot_plain`; any other device raises. A build or
+    launch failure raises — nothing falls back."""
     return _verify("verify_hot", verify_kernel_hot, verify_kernel_hot_plain,
-                   (a_table, r_bytes, s_bytes, h_bytes), _HOT_SHAPES)
+                   (a_table, r_bytes, s_bytes, h_bytes), _HOT_SHAPES,
+                   HOT_BLOCK_THREADS)
 
 
 def verify_kernel_r16(a_bytes, r_bytes, s_bytes, h_bytes):

@@ -1,7 +1,7 @@
 """K1, K2, K3 and K5 on the card: each hand-written CUDA kernel against
 its plain PyTorch version on the same CUDA tensors, bit for bit and word
-for word (integer arithmetic, tolerance zero), K1 also at ragged sizes
-and at each block size it takes; K4 over the one card named
+for word (integer arithmetic, tolerance zero), K1 and K2 also at ragged
+sizes and at each block size they take; K4 over the one card named
 four times against K1; and the batch verifier's (unsplit and split) and
 hasher's main paths through the kernels.
 
@@ -140,18 +140,44 @@ def _hot_rows(rng, n):
                                       [:n]) for k in range(4))
 
 
-@pytest.mark.parametrize("batch", [128, 2048])
-def test_hot_kernel_matches_plain_at_bucket(card, batch):
-    rows = _hot_rows(np.random.default_rng(64), batch)
-    ops = tuple(torch.from_numpy(x).to(card) for x in rows)
+def _hot_kernel_vs_plain(rows, dev):
+    ops = tuple(torch.from_numpy(x).to(dev) for x in rows)
     before = tvk.verify_kernel_hot.launches
     got = tvk.verify_kernel_hot(*ops)
-    torch.cuda.synchronize(card)
+    torch.cuda.synchronize(dev)
     assert tvk.verify_kernel_hot.launches == before + 1
     want = tvk.verify_kernel_hot_plain(*ops)
+    assert got.dtype == torch.bool and got.shape == (len(rows[0]),)
     assert torch.equal(got, want), torch.nonzero(got != want).flatten()
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize("batch", [128, 2048])
+def test_hot_kernel_matches_plain_at_bucket(card, batch):
+    got = _hot_kernel_vs_plain(_hot_rows(np.random.default_rng(64), batch),
+                               card)
     assert got[:24].all() and not got[24:].all()
     assert "registers" in _build.build_log(_build.library_path("verify_hot"))
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128])
+def test_hot_kernel_matches_plain_at_each_block_size(card, threads):
+    ops = tuple(torch.from_numpy(x).to(card)
+                for x in _hot_rows(np.random.default_rng(67), 129))
+    got = torch.empty((129,), dtype=torch.bool, device=card)
+    _build.launch("verify_hot", ops, got, 129, threads)
+    assert torch.equal(got, tvk.verify_kernel_hot_plain(*ops))
+    with pytest.raises(RuntimeError):
+        _build.launch("verify_hot", ops, got, 129, 48)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 127, 129, 2047])
+def test_hot_kernel_matches_plain_at_ragged_size(card, batch):
+    """K2 runs four threads a row: rows past n inside a group and partial
+    warps still join every shuffle and store nothing."""
+    got = _hot_kernel_vs_plain(_hot_rows(np.random.default_rng(66), batch),
+                               card)
+    assert got[:24].all()  # the matching rows come first
 
 
 def test_hot_main_path_on_card(card):

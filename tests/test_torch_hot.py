@@ -16,6 +16,7 @@ Integer arithmetic throughout: tolerance zero."""
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import subprocess
 
@@ -237,8 +238,9 @@ extern "C" int verify_hot_rows_host(const int16_t* tab, const uint8_t* r,
   verify_hot_consts K;
   memcpy(&K, consts, sizeof(K));
   for (int i = 0; i < n; ++i)
-    out[i] = (uint8_t)verify_hot_row(tab + (size_t)i * kTableLimbs,
-                                     r + 32 * i, s + 32 * i, h + 32 * i, K);
+    out[i] = (uint8_t)verify_hot_row_x4(tab + (size_t)i * kTableLimbs,
+                                        r + 32 * i, s + 32 * i, h + 32 * i,
+                                        K);
   return (int)sizeof(K);
 }
 extern "C" void recode256_host(const uint8_t* s, int16_t* d) {
@@ -251,12 +253,55 @@ extern "C" void fe_from_limbs13_host(const int16_t* limbs, int32_t* out) {
   fe_from_limbs13(f, w);
   memcpy(out, f.v, 40);
 }
+// The addition of -A's entry for ``digit`` from a row's table, the four
+// lanes of ge25519_x4.cuh run in turn as the kernel runs them (hot_load,
+// hot_entry_lane, x4_add_r1/r2), then ref10's one-thread ge_madd and
+// ge_p1p1_to_p3 on the same entry: entry min(|digit|, 128) read as
+// (y + x, y - x, 2dxy), negated for a negative digit, the identity (1, 1,
+// 0) for digit 0. Points are extended (X, Y, Z, T), 4 x 10 limbs.
+extern "C" void hot_add_host(const int32_t* p, const int16_t* table,
+                             int digit, int32_t* x4, int32_t* one) {
+  fe own[4], g[4], r1[4];
+  memcpy(own, p, sizeof(own));
+  x4_gather_xy<4>(g, own);
+  for (int j = 0; j < 4; ++j) {
+    uint64_t w[5];
+    fe op;
+    hot_load(w, table, j, digit);
+    hot_entry_lane(op, j, w, digit);
+    x4_add_r1(r1[j], j, g, op);
+  }
+  x4_gather<4>(g, r1);
+  for (int j = 0; j < 4; ++j) x4_add_r2(own[j], j, g);
+  memcpy(x4, own, sizeof(own));
+
+  ge_p3 a, b;
+  memcpy(&a, p, sizeof(a));
+  ge_precomp e;
+  fe_1(e.yplusx);
+  fe_1(e.yminusx);
+  fe_0(e.xy2d);
+  if (digit != 0) {
+    const int m = hot_saturate(digit < 0 ? -digit : digit);
+    uint64_t w[15];
+    memcpy(w, table + (m - 1) * kEntryLimbs, sizeof(w));
+    fe_from_limbs13(e.yplusx, w);
+    fe_from_limbs13(e.yminusx, w + 5);
+    fe_from_limbs13(e.xy2d, w + 10);
+    if (digit < 0) ge_precomp_neg(e);
+  }
+  ge_p1p1 t;
+  ge_madd(t, a, e);
+  ge_p1p1_to_p3(b, t);
+  memcpy(one, &b, sizeof(b));
+}
 """
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """csrc/verify_hot.cuh built with g++ behind a small C shim."""
+    """csrc/verify_hot.cuh built with g++ behind a small C shim (the four
+    lanes of ge25519_x4.cuh run in turn)."""
     d = tmp_path_factory.mktemp("host_hot")
     shim = d / "shim.cpp"
     shim.write_text(_HOST_SHIM)
@@ -270,6 +315,7 @@ def host_lib(tmp_path_factory):
     lib.verify_hot_rows_host.restype = ctypes.c_int
     lib.recode256_host.argtypes = [vp, vp]
     lib.fe_from_limbs13_host.argtypes = [vp, vp]
+    lib.hot_add_host.argtypes = [vp, vp, ctypes.c_int, vp, vp]
     return lib
 
 
@@ -303,9 +349,10 @@ def test_cuda_limb_conversion_on_host(host_lib):
 
 
 def test_cuda_verify_hot_row_on_host_matches_plain(host_lib, rows):
-    """The kernel's per-row function, run on the host, gives the plain
-    version's bit: on the B = 16 rows above and on 24 more (saturating
-    matching rows, tampered R, s and h, random rows, zero scalars)."""
+    """The kernel's per-row function (verify_hot_row_x4, its four lanes
+    run in turn), on the host, gives the plain version's bit: on the B = 16
+    rows above and on 25 more (saturating matching rows, tampered R, s and
+    h, random rows, zero scalars, and the engine's padding row)."""
     rng = np.random.default_rng(76)
     match = vectors.hot_matching_rows(rng, 12)
     tampered = [x.copy() for x in match]
@@ -314,8 +361,9 @@ def test_cuda_verify_hot_row_on_host_matches_plain(host_lib, rows):
     rand = (match[0][:6],) + vectors.random_rows(rng, 6)[1:]
     zeros = (match[0][:6], match[1][:6], np.zeros((6, 32), np.uint8),
              np.zeros((6, 32), np.uint8))
+    pad = (tbv._PAD_TABLE, tbv._PAD_R, tbv._PAD_S, tbv._PAD_H)
     more = tuple(np.ascontiguousarray(np.concatenate(
-        [tampered[k], rand[k], zeros[k]])) for k in range(4))
+        [tampered[k], rand[k], zeros[k], pad[k]])) for k in range(4))
     consts = state.port_tables()["hot_kernel_consts"].numpy()
     for tab, r, s, h in (rows, more):
         n = len(r)
@@ -327,6 +375,125 @@ def test_cuda_verify_hot_row_on_host_matches_plain(host_lib, rows):
         plain = tvk.verify_kernel_hot_plain(*_t((tab, r, s, h))).numpy()
         np.testing.assert_array_equal(out.astype(bool), plain)
         assert plain.any() and not plain.all()
+    assert out[-1]  # the padding row's bit is True
+
+
+_START = [(51 * i + 1) // 2 for i in range(10)]
+
+
+def _fe_values(limbs):
+    return [sum(int(v) << s for v, s in zip(x, _START)) % ref.P
+            for x in limbs.reshape(-1, 10)]
+
+
+def _carried(point):
+    """An extended point's coordinates carried into signed limbs, as a
+    lane holds them (fe_carry's form)."""
+    out = np.stack([state.to_radix25_5(v % ref.P) for v in point]).astype(
+        np.int64)
+    for row in out:
+        for i in range(10):
+            bits = 25 if i & 1 else 26
+            c = (row[i] + (1 << (bits - 1))) >> bits
+            row[i] -= c << bits
+            if i < 9:
+                row[i + 1] += c
+            else:
+                row[0] += 19 * c
+    return np.ascontiguousarray(out.astype(np.int32))
+
+
+@pytest.mark.parametrize("digits", ["positive", "negative", "saturating"])
+def test_hot_lane_add_equals_ref10_madd(host_lib, digits):
+    """The four-lane addition of an entry of the row's table, as K2 loads
+    and maps it (lane 0 Y - X, lane 1 Y + X, lane 2 the constant 2, lane 3
+    2dT, negated for a negative digit), gives ref10's ge_madd and
+    ge_p1p1_to_p3 on the same entry coordinate for coordinate as field
+    values: for the identity, the small-order points and multiples of B
+    at a random projective scale, against entries of real points and
+    entries at the canonical extremes (every component p - 1 = 2^255 - 20,
+    or 0 and p - 1 mixed), with positive, negative and saturating digits
+    (a top digit above 128 reads entry 128) and the zero digit (the
+    identity). The sums stay within the header's bound: a lane's result
+    is carried again."""
+    rng = np.random.default_rng(77)
+    small = [ref.point_decompress(e) for e in ref.SMALL_ORDER_ENCODINGS]
+    pts = [ref.IDENTITY] + [p for p in small if p is not None]
+    for _ in range(4):
+        pt = ref.scalarmult_base(int(rng.integers(1, 2**62)))
+        pts += [pt, vectors._neg(pt)]
+    pts = [tuple(c * int(k) % ref.P for c in p)
+           for p, k in zip(pts, rng.integers(1, 2**62, len(pts)))]
+    top = ref.P - 1
+    assert top == 2**255 - 20
+    entries = [list(row) for row in ref.affine_table_rows(
+        ref.scalarmult_base(int(rng.integers(1, 2**62))), 3)]
+    entries += [[top, top, top], [top, 0, top], [0, top, 1]]
+    table = np.stack([np.array([st._limbs(int.from_bytes(rng.bytes(32),
+                                                         "little") % ref.P)
+                                for _ in range(3)], np.int16)
+                      for _ in range(st.TABLE_ENTRIES)])
+    picks = {"positive": (1, 5, 127, 128), "negative": (-1, -5, -127, -128),
+             "saturating": (129, 200, 256)}[digits] + (0,)
+    x4 = np.zeros((4, 10), np.int32)
+    one = np.zeros((4, 10), np.int32)
+    checked = 0
+    for p in pts:
+        pl = _carried(p)
+        for e in entries:
+            for d in picks:
+                tab = table.copy()
+                m = min(abs(d), 128)
+                if m:
+                    tab[m - 1] = [st._limbs(c % ref.P) for c in e]
+                tab = np.ascontiguousarray(tab)
+                host_lib.hot_add_host(pl.ctypes.data, tab.ctypes.data, d,
+                                      x4.ctypes.data, one.ctypes.data)
+                assert _fe_values(x4) == _fe_values(one), (p, e, d)
+                assert np.abs(x4).max() <= (1 << 25) + (1 << 6)
+                checked += 1
+    assert checked == len(pts) * len(entries) * len(picks)
+    # the result is the group law's: P + (entry's point), or P - it
+    q = ref.scalarmult_base(int(rng.integers(1, 2**62)))
+    p = pts[-1]
+    tab = table.copy()
+    tab[4] = [st._limbs(c % ref.P) for c in ref.affine_table_rows(q, 1)[0]]
+    for d in (5, -5):
+        host_lib.hot_add_host(_carried(p).ctypes.data,
+                              np.ascontiguousarray(tab).ctypes.data, d,
+                              x4.ctypes.data, one.ctypes.data)
+        want = ref.point_add(p, q if d > 0 else vectors._neg(q))
+        got = _fe_values(x4)
+        assert got[0] * want[2] % ref.P == want[0] * got[2] % ref.P
+        assert got[1] * want[2] % ref.P == want[1] * got[2] % ref.P
+
+
+def test_hot_kernel_multiplies_counts_the_op_sequence():
+    """chip_smoke.py's count of K2's function, for its bound: encode, 8
+    doublings a window below the most significant nonzero radix-256 digit
+    of s or h, a mixed add for each nonzero digit; and what the four-lane
+    kernel executes whatever the digits."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    zero = torch.zeros((2, 32), dtype=torch.uint8)
+    # per row, with every digit zero: encode, 254 squarings (55 products)
+    # and 13 multiplies (100)
+    fixed = 254 * 55 + 13 * 100
+    assert smoke.hot_kernel_multiplies(zero, zero) == 2 * fixed
+    one = zero.clone()
+    one[0, 0] = 1  # a nonzero digit in window 0 of one row: a mixed add
+    assert smoke.hot_kernel_multiplies(one, zero) == 2 * fixed + 700
+    assert smoke.hot_kernel_multiplies(zero, one) == 2 * fixed + 700
+    top = zero.clone()
+    top[1, 30] = 0x80  # digit -128 in window 30, carry 1 into window 31:
+    # two digits, 31 windows of 8 doublings (4 squarings, 3 multiplies)
+    assert smoke.hot_kernel_multiplies(zero, top) == \
+        2 * fixed + 248 * (4 * 55 + 3 * 100) + 2 * 700
+    # the four-lane kernel: 248 doublings making T, 64 adds, encode
+    assert smoke.hot_kernel_executed(2) == \
+        2 * ((992 + 254) * 55 + (992 + 64 * 7 + 13) * 100)
 
 
 # ---------------- the port's signer-table cache ----------------
