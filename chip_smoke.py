@@ -14,9 +14,10 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 2. build   — K1 (``csrc/verify_cold.cu``), K2 (``csrc/verify_hot.cu``),
    K3 (``csrc/sha256.cu``) and K5 (``csrc/verify_r16.cu``) with nvcc, the
    SHA-512 prep library and the native host oracle with g++, the six
-   builds started together; build seconds, registers and spills (K1's and
-   K2's entry functions parsed apart), their SASS loops with shuffles and
-   the instructions of one squaring in their exponent chains;
+   builds started together; build seconds, registers and spills (K1's,
+   K2's, K3's and K5's entry functions parsed apart), the four-lane
+   kernels' SASS loops with shuffles and the instructions of one squaring
+   in their exponent chains, and K3's block loop counted from its SASS;
 3. kernel against plain — K1 (four threads a row) and its plain PyTorch
    version on the same CUDA tensors (edge corpus, good signatures, rows
    whose device bit is True for arbitrary 256-bit scalars, random bytes):
@@ -62,17 +63,19 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 10. hashing — ``default_hasher().hash_batch`` on 2,048 messages (0-503
    bytes, 2% oversize at 504-2,000 bytes), every digest equal to
    hashlib's; p50 and p90 of 20 calls beside hashlib's time for the same
-   messages; then K3 against its plain version on the call's own rows at
-   B = 2,048, and timed; one ``{"kernels": [...]}`` line.
-
+   messages; then K3 against its plain version and hashlib on the call's
+   own rows at B = 2,048 and on 16,384 new messages of the same length
+   mix, timed as the host issues the launches and queued behind a spin
+   (K3 runs shorter than a launch from Python), beside its bound (the
+   standard's 1,384 operations a block) and its SASS count;
 11. the radix sweep — K5 (``csrc/verify_r16.cu``, the radix-16 arm) on the
    main path's own padded rows at B = 2,048 and 16,384, with the edge
    corpus, radix-16 matching rows, rows whose scalar overflows the top
    radix-16 window (R = 0 on half of them) and random bytes written over
    their head; K5 and its plain version give equal bits on every row;
    then K1 and K5 timed on the same rows, one line with both times and
-   their ratio (K5 one thread a row, K1 four: the ratio compares the
-   designs, not the radices);
+   their ratio (both four lanes a row on one row function: radix 16
+   against radix 32), and K5's registers and spills;
 12. K4 — ``verify_kernel_sharded`` over every visible card, and over the
    one card named 4 times, at B = 2,048 and 16,384 on phase 6's rows:
    equal to K1 on every row, and timed;
@@ -100,9 +103,10 @@ phase 12's calls, K1 and K2 again over phase 13. After every main-path
 phase the dispatch must be clean: no device fault (no retry, every
 breaker closed and never opened), no audit mismatch, no conviction;
 only phase 15 expects otherwise. The engine has no host failover, so no
-row of a card is ever served by the host. The last line is
-``{"ok": true, "device": {...}}``. With no card, or outside the
-repository, it exits non-zero and prints no result.
+row of a card is ever served by the host. Before the last line, one
+``{"kernels": [...]}`` line holds every kernel's launches, times, bound
+and build; the last line is ``{"ok": true, "device": {...}}``. With no
+card, or outside the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -110,6 +114,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -162,6 +167,9 @@ SWEEP_ROWS = {"verify_cold": (128,) + KERNEL_BATCHES,
               "verify_hot": KERNEL_BATCHES}
 HASH_MSGS = 2048
 HASH_OVERSIZE_SHARE = 0.02
+# K3 against plain and timed at the hashing call's size and at the top
+# bucket (new messages with the same length mix)
+HASH_KERNEL_BATCHES = (HASH_MSGS, 16384)
 HASH_CALLS = 20
 HASH_KERNEL_REPS = 200
 # H100 figures for the bound: 32-bit integer multiply-adds, and 32-bit
@@ -171,11 +179,23 @@ HASH_KERNEL_REPS = 200
 IMAD_PER_CLOCK_PER_SM = 64
 INT_OPS_PER_CLOCK_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
+# cycles of torch.cuda._sleep a second: at least the card's SM clock, so
+# that a spin lasts at least as long as asked (queued_ms checks it did)
+SLEEP_CYCLES_PER_S = 2e9
 ROW_BYTES = 4 * 32 + 1  # A, R, s, h read once, one bool written
 HOT_ENTRY_BYTES = 3 * 20 * 2  # one int16 affine cached entry
-# K3's operations per compressed block are counted from the built
-# kernel's SASS (sha_ops_per_block): these instructions of its block loop,
-# the 32-bit integer add, logic and shift work of the compression.
+# K3's bound counts the function's work, FIPS 180-4's operations on
+# 32-bit words a 64-byte block, a three-input add or logic operation as
+# one: a round is Sigma0 and Sigma1 (3 rotations and a three-way XOR
+# each), Ch and Maj (one logic operation each) and 4 adds (2 for T1, one
+# for e, one for a); a schedule word sigma0 and sigma1 (2 rotations, a
+# shift and a three-way XOR each) and 2 adds; the feed-forward 8 adds.
+SHA_ROUND_OPS = 2 * (3 + 1) + 2 + 4
+SHA_SCHEDULE_OPS = 2 * (2 + 1 + 1) + 2
+SHA_FEED_FORWARD_OPS = 8
+# The instructions of the built K3 that do that work, counted from its
+# SASS beside the bound (hash_kernel_executed): 32-bit integer add, logic
+# and shift.
 SHA_SASS_OPS = ("SHF", "LOP3", "IADD3", "IMAD.IADD")
 _SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?"
                         r"([A-Z0-9_.]+)\s*([^;]*);")
@@ -228,6 +248,10 @@ _X4_HOT_ADDS = (0, 32 * 2 * _ADD_MULS)
 # 8 included (it adds the zero entry)
 _TABLE16 = (4, 4 + 6 * 8 + 8)
 _R16_DOUBLINGS = (63 * 4 * 4, 63 * (3 * 3 + 4))
+# What the four-lane K5 executes beyond that, as for K1: all 63 windows of
+# 4 doublings making T, and both adds in each of the 64 windows
+_X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
+_X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
 # phase 15's per-device backoff: far longer than a TxSet call (tens of
@@ -348,10 +372,10 @@ def hot_kernel_executed(rows: int) -> int:
 
 
 def r16_kernel_multiplies(s_bytes, h_bytes) -> int:
-    """32x32->64 multiply-adds that K5 executes for these rows: the fixed
-    decompress, table, doublings and encode, and one add for each nonzero
-    radix-16 digit (7 multiplies for s, 8 for h). (batch, 32) uint8 CPU
-    tensors in, a Python int out."""
+    """32x32->64 multiply-adds of K5's function on these rows, for its
+    bound: the fixed decompress, table, doublings and encode, and one add
+    for each nonzero radix-16 digit (7 multiplies for s, 8 for h).
+    (batch, 32) uint8 CPU tensors in, a Python int out."""
     nz_s = int((vk.signed_digits16(s_bytes) != 0).sum())
     nz_h = int((vk.signed_digits16(h_bytes) != 0).sum())
     fixed = [_DECOMPRESS, _TABLE16, _R16_DOUBLINGS, _ENCODE]
@@ -359,6 +383,24 @@ def r16_kernel_multiplies(s_bytes, h_bytes) -> int:
     mul = sum(f[1] for f in fixed)
     return (s_bytes.shape[0] * (sq * FE_SQ_MACS + mul * FE_MUL_MACS)
             + (nz_s * _ADD_MULS + nz_h * _CACHED_ADD_MULS) * FE_MUL_MACS)
+
+
+def r16_kernel_executed(rows: int) -> int:
+    """32x32->64 multiply-adds the four-lane K5 executes for ``rows`` rows,
+    each round's products counted once: every doubling makes T and every
+    window adds both entries (a zero digit the identity, a top digit above
+    8 the zero entry). Does not depend on the data."""
+    fixed = [_DECOMPRESS, _TABLE16, _X4_R16_DOUBLINGS, _X4_R16_ADDS,
+             _ENCODE]
+    return rows * (sum(f[0] for f in fixed) * FE_SQ_MACS
+                   + sum(f[1] for f in fixed) * FE_MUL_MACS)
+
+
+def sha_ops_per_block() -> int:
+    """K3's function: 32-bit operations a compressed block by FIPS 180-4
+    (64 rounds, 48 schedule words, the feed-forward), 1,384."""
+    return (64 * SHA_ROUND_OPS + 48 * SHA_SCHEDULE_OPS
+            + SHA_FEED_FORWARD_OPS)
 
 
 def bound(info, ops, ops_per_clock_per_sm, nbytes):
@@ -400,32 +442,32 @@ def sass_loops(code):
             and int(arg, 16) < addr]
 
 
-def sha_ops_per_block():
-    """K3's 32-bit integer operations per compressed block, from
-    ``cuobjdump -sass`` of the built library: the instructions between
-    the kernel's one backward branch and its target (the loop over a
-    row's blocks), of the kinds in ``SHA_SASS_OPS`` (``.X`` carry forms,
-    moves, loads, compares and branches left out). Returns (count, the
-    count by opcode)."""
+def hash_kernel_executed():
+    """What the built K3 executes a block, from ``cuobjdump -sass``: the
+    instructions of its block loop (of the loops between a backward
+    branch and its target, the one with the most compression work) and
+    of them those of the kinds in ``SHA_SASS_OPS`` (``.X`` carry forms,
+    moves, loads, compares and branches left out). A diagnostic beside
+    the bound, which counts the function."""
     code = sass_code("sha256", "sha256_kernel")
     back = sass_loops(code)
-    check(len(back) == 1, f"K3's SASS has {len(back)} backward branches, "
-          "not the one block loop")
-    lo, hi = back[0]
-    body = [op for addr, op, _arg in code if lo <= addr <= hi]
-    loads = sum(op.startswith("LDG.E.128") for op in body)
-    check(loads == 4, f"K3's block loop makes {loads} 16-byte loads, not "
-          "one block's 4")
-    kinds = collections.Counter(_sass_kind(op) for op in body)
-    counts = {k: kinds[k] for k in SHA_SASS_OPS}
-    return sum(counts.values()), counts
+    check(back, "K3's SASS has no loop")
+    best = None
+    for lo, hi in back:
+        body = [op for addr, op, _arg in code if lo <= addr <= hi]
+        kinds = collections.Counter(_sass_kind(op) for op in body)
+        by_op = {k: kinds[k] for k in SHA_SASS_OPS}
+        if best is None or sum(by_op.values()) > best["ops"]:
+            best = {"instructions": len(body), "ops": sum(by_op.values()),
+                    "ops_by_opcode": by_op, "loops": len(back)}
+    return best
 
 
 def shuffle_loops(name, kernel):
-    """The loops of a four-lane kernel that gather across lanes (K1: the
-    table build, a doubling, an addition, the window; K2: a doubling, an
-    addition, the window), from its SASS: instructions a lane for one
-    pass, and of them IMAD.WIDE and SHFL."""
+    """The loops of a four-lane kernel that gather across lanes (K1 and
+    K5: the table build, a doubling, an addition, the window; K2: a
+    doubling, an addition, the window), from its SASS: instructions a
+    lane for one pass, and of them IMAD.WIDE and SHFL."""
     code = sass_code(name, kernel)
     out = []
     for lo, hi in sass_loops(code):
@@ -480,8 +522,9 @@ def phase_device():
 
 def phase_build(dev):
     """K1, K2, K3 and K5 with nvcc, the prep library and the host oracle
-    with g++, all six builds started together. Returns K1's and K2's
-    registers, spills, lanes a row and shuffle loops, by library name."""
+    with g++, all six builds started together. Returns K1's, K2's and
+    K5's registers, spills, lanes a row and shuffle loops, and K3's
+    registers and SASS block loop, by library name."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(_build.LIBRARIES) + 2) as pool:
         jobs = [pool.submit(_build.library, name, dev)
@@ -500,7 +543,8 @@ def phase_build(dev):
             if "registers" in ln or "spill" in ln:
                 print(f"[build] {name} ptxas: {ln.strip()}")
     out = {}
-    for label, name in (("K1", "verify_cold"), ("K2", "verify_hot")):
+    for label, name in (("K1", "verify_cold"), ("K2", "verify_hot"),
+                        ("K5", "verify_r16")):
         kernel = f"{name}_kernel"
         info = out[name] = {
             "ptxas": ptxas_usage(name, kernel),
@@ -515,6 +559,10 @@ def phase_build(dev):
               f"squaring): {info['chain_squaring_instructions']}, beside "
               f"the ladder's doubling pass above (one squaring, one "
               f"multiply, the shuffles)")
+    info = out["sha256"] = {"ptxas": ptxas_usage("sha256", "sha256_kernel"),
+                            "executed": hash_kernel_executed()}
+    print(f"[build] K3 entry function: {info['ptxas']}; one thread a "
+          f"message; its block loop, from the SASS: {info['executed']}")
     return out
 
 
@@ -546,8 +594,9 @@ def launch_past_wrapper(name, ops, threads):
 
 
 def ptxas_usage(name, kernel):
-    """Registers, stack frame and spill bytes of the entry function
-    ``kernel`` of library ``name``, from its ``-Xptxas -v`` log."""
+    """Registers, stack frame, spill bytes and static shared memory of the
+    entry function ``kernel`` of library ``name``, from its ``-Xptxas -v``
+    log."""
     log = _build.build_log(_build.library_path(name))
     entry = re.search(r"Compiling entry function '(\w*" + kernel
                       + r"\w*)'", log)
@@ -558,13 +607,15 @@ def ptxas_usage(name, kernel):
                       r"stack frame, (\d+) bytes spill stores, (\d+) bytes "
                       r"spill loads", log)
     regs = re.search(r"Compiling entry function '" + sym
-                      + r"'.*?Used (\d+) registers", log, re.S)
+                      + r"'.*?Used (\d+) registers([^\n]*)", log, re.S)
     check(props is not None and regs is not None,
           f"{name}: no register or spill line for {kernel}")
+    smem = re.search(r"(\d+) bytes smem", regs.group(2))
     return {"registers": int(regs.group(1)),
             "stack_bytes": int(props.group(1)),
             "spill_store_bytes": int(props.group(2)),
-            "spill_load_bytes": int(props.group(3))}
+            "spill_load_bytes": int(props.group(3)),
+            "static_smem_bytes": int(smem.group(1)) if smem else 0}
 
 
 def phase_kernel_vs_plain(dev, rng):
@@ -675,6 +726,32 @@ def phase_catchup(rng):
           f"verify_batch p50 {p50:.3f} ms, p90 {p90:.3f} ms over "
           f"{CATCHUP_CALLS} calls ({n / p50 * 1e3:.0f} sigs/s at p50)")
     return {"p50_ms": p50, "p90_ms": p90}, items, got, bad
+
+
+def queued_ms(fn, reps):
+    """Milliseconds a call of ``fn``, a kernel launch, keeps the card busy
+    when the card runs ``reps`` calls back to back (``_event_ms`` times
+    them as the host issues them, which for K3 is the host's launch rate:
+    a launch from Python costs more than K3 runs). The calls are issued
+    once untimed; then the stream spins (``torch.cuda._sleep``) for four
+    times the host time that took, and the timed calls are queued behind the
+    spin. Fails if the spin ended before they were all queued."""
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4 * host_s * SLEEP_CYCLES_PER_S))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    check(not start.query(), "queued_ms: the spin ended before the timed "
+          "launches were queued")
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _event_ms(fn, reps):
@@ -1035,14 +1112,54 @@ def phase_hot_kernel_times(dev, rng, info, main_rows):
     return per_batch, compared, err, swept
 
 
-def phase_hashing(dev, rng, info):
-    """BatchHasher's main path on 2,048 messages, then K3 against its plain
-    version on the call's own packed rows."""
-    n_over = int(HASH_MSGS * HASH_OVERSIZE_SHARE)
+def hash_messages(rng, n):
+    """``n`` messages of uniform length up to the 8-block capacity (503
+    bytes), 2% oversize at 504-2,000 bytes; the oversize count too."""
+    n_over = int(n * HASH_OVERSIZE_SHARE)
     lens = np.concatenate([rng.integers(0, sk.max_message_bytes(MAX_BLOCKS)
-                                        + 1, HASH_MSGS - n_over),
+                                        + 1, n - n_over),
                            rng.integers(504, 2001, n_over)])
-    msgs = [rng.bytes(int(n)) for n in rng.permutation(lens)]
+    return [rng.bytes(int(k)) for k in rng.permutation(lens)], n_over
+
+
+def k3_against_plain(dev, info, msgs):
+    """K3 and its plain version on ``msgs`` packed as the hasher packs
+    them: equal words on every row, equal to hashlib on every row that
+    fits (an oversize row has no active block and gives H0), both timed,
+    and the bound. Returns ``(entry, max abs err)``."""
+    words, active, fits = sk.pack_messages(msgs, MAX_BLOCKS)
+    w, a = rows_to(dev, (words, active))
+    got = sk.sha256_kernel(w, a).cpu().numpy().astype(np.int64)
+    plain = sk.sha256_kernel_plain(w, a).cpu().numpy().astype(np.int64)
+    torch.cuda.synchronize()
+    n = len(msgs)
+    bad = int((got != plain).any(1).sum())
+    check(bad == 0, f"K3 and plain differ on {bad} of {n} rows")
+    fit = [m for m, f in zip(msgs, fits) if f]
+    check(np.array_equal(got[fits], sk.host_digest_words(fit)),
+          f"K3 differs from hashlib at B={n}")
+    check((got[~fits] == np.array(sk.H0)).all(), "an oversize row is not H0")
+    ms = _event_ms(lambda: sk.sha256_kernel(w, a), HASH_KERNEL_REPS)
+    ms_queued = queued_ms(lambda: sk.sha256_kernel(w, a), HASH_KERNEL_REPS)
+    plain_ms = _event_ms(lambda: sk.sha256_kernel_plain(w, a), 1)
+    blocks = int(active.sum())
+    # the words and active flags read once, eight digest words written
+    row_bytes = MAX_BLOCKS * (64 + 1) + 32
+    bound_ms, bound_by = bound(info, blocks * sha_ops_per_block(),
+                               INT_OPS_PER_CLOCK_PER_SM, n * row_bytes)
+    return {"ms": ms, "ms_queued": ms_queued, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "active_blocks": blocks,
+            "ops_per_block": sha_ops_per_block(),
+            "rows_hashlib": len(fit)}, float(np.abs(got - plain).max())
+
+
+def phase_hashing(dev, rng, info, executed):
+    """BatchHasher's main path on 2,048 messages, then K3 against its plain
+    version and hashlib on the call's own packed rows and on 16,384 new
+    messages of the same length mix, timed beside the bound; ``executed``
+    is phase 2's SASS count of the built K3, printed beside it."""
+    msgs, n_over = hash_messages(rng, HASH_MSGS)
     want = [hashlib.sha256(m).digest() for m in msgs]
     h = default_hasher()
     check(h.device.type == "cuda", f"default hasher on {h.device}")
@@ -1065,39 +1182,31 @@ def phase_hashing(dev, rng, info):
         for m in msgs:
             hashlib.sha256(m).digest()
         host.append((time.perf_counter() - t) * 1e3)
-    words, active, _fits = sk.pack_messages(msgs, MAX_BLOCKS)
-    w, a = rows_to(dev, (words, active))
-    got = sk.sha256_kernel(w, a).cpu().numpy().astype(np.int64)
-    plain = sk.sha256_kernel_plain(w, a).cpu().numpy().astype(np.int64)
-    torch.cuda.synchronize()
-    bad = int((got != plain).any(1).sum())
-    check(bad == 0, f"K3 and plain differ on {bad} rows")
-    ms = _event_ms(lambda: sk.sha256_kernel(w, a), HASH_KERNEL_REPS)
-    plain_ms = _event_ms(lambda: sk.sha256_kernel_plain(w, a), 1)
-    blocks = int(active.sum())
-    ops_per_block, by_op = sha_ops_per_block()
-    # the words and active flags read once, eight digest words written
-    row_bytes = MAX_BLOCKS * (64 + 1) + 32
-    bound_ms, bound_by = bound(info, blocks * ops_per_block,
-                               INT_OPS_PER_CLOCK_PER_SM,
-                               HASH_MSGS * row_bytes)
+    per_batch, err = {}, 0.0
+    for b in HASH_KERNEL_BATCHES:
+        rows = msgs if b == HASH_MSGS else hash_messages(rng, b)[0]
+        per_batch[str(b)], e = k3_against_plain(dev, info, rows)
+        err = max(err, e)
     res = {"p50_ms": np.percentile(times, 50),
            "p90_ms": np.percentile(times, 90),
            "hashlib_p50_ms": np.percentile(host, 50),
            "hashlib_p90_ms": np.percentile(host, 90), "oversize": n_over,
-           "launches": launches, "rows_compared": HASH_MSGS,
-           "max_abs_err": float(np.abs(got - plain).max()), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "active_blocks": blocks, "ops_per_block": ops_per_block,
-           "ops_by_opcode": by_op}
+           "launches": launches, "rows_compared": sum(HASH_KERNEL_BATCHES),
+           "max_abs_err": err, "by_batch": per_batch}
     print(f"[hashing] {HASH_MSGS} messages ({n_over} oversize, hashed on "
           f"the host), every digest = hashlib; hash_batch p50 "
           f"{res['p50_ms']:.3f} ms, p90 {res['p90_ms']:.3f} ms over "
-          f"{HASH_CALLS} calls; hashlib p50 {res['hashlib_p50_ms']:.3f} ms; "
-          f"K3 = plain on {HASH_MSGS} rows; K3 {ms:.4f} ms, plain "
-          f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
-          f"{blocks} active blocks x {ops_per_block} operations, from "
-          f"the SASS: {by_op})")
+          f"{HASH_CALLS} calls; hashlib p50 {res['hashlib_p50_ms']:.3f} ms")
+    ratio = executed["ops"] / sha_ops_per_block()
+    for b, k in per_batch.items():
+        print(f"[hashing] B={b}: K3 = plain on every row, = hashlib on "
+              f"the {k['rows_hashlib']} that fit; K3 {k['ms']:.4f} ms as "
+              f"issued, {k['ms_queued']:.4f} ms queued, "
+              f"plain {k['plain_ms']:.1f} ms, bound {k['bound_ms']:.5f} ms "
+              f"({k['bound_by']}; {k['active_blocks']} active blocks x "
+              f"{k['ops_per_block']} operations of the function; the "
+              f"kernel's block loop does {executed['ops']}, "
+              f"{ratio:.4f}x, in {executed['instructions']} instructions)")
     return res
 
 
@@ -1136,10 +1245,11 @@ def sweep_rows(rng, items, b):
     return tuple(rows), len(edge[0])
 
 
-def phase_radix_sweep(dev, rng, info, main_items):
+def phase_radix_sweep(dev, rng, info, main_items, build):
     """K5 on the main path's rows at each bucket (the sweep's calls, the
     launches counted), then K5 against its plain version, K5 and K1 timed
-    on the same rows, and the ratio."""
+    on the same rows, and the ratio: radix 16 against radix 32, one row
+    function on four lanes. ``build`` is phase 2's K5 entry."""
     all_ops, n_edge = {}, 0
     for b in KERNEL_BATCHES:
         rows, n_edge = sweep_rows(rng, main_items[b], b)
@@ -1172,25 +1282,29 @@ def phase_radix_sweep(dev, rng, info, main_items):
         k1_ms = _event_ms(lambda: vk.verify_kernel(*ops), KERNEL_REPS)
         plain_ms = _event_ms(lambda: vk.verify_kernel_r16_plain(*ops), 1)
         macs = r16_kernel_multiplies(s_cpu, h_cpu)
+        executed = r16_kernel_executed(b)
         bound_ms, bound_by = bound(info, macs, IMAD_PER_CLOCK_PER_SM,
                                    b * ROW_BYTES)
         per_batch[str(b)] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "multiply_adds": macs,
+            "executed_multiply_adds": executed,
             "rows_true": int(got.sum()), "rows_overflow": overflow,
             "rows_differing_from_k1": differ_k1, "k1_ms": k1_ms,
             "k5_over_k1": ms / k1_ms}
         print(f"[radix-sweep] B={b}: K5 = plain on every row ({overflow} "
               f"rows with a top radix-16 digit above 8; {differ_k1} rows "
               f"whose bit differs from K1's, all of them overflow rows); "
-              f"K5 (one thread a row) {ms:.4f} ms, K1 (four lanes a row) "
-              f"{k1_ms:.4f} ms on the same rows, K5/K1 {ms / k1_ms:.3f}: "
-              f"the ratio compares the two designs, not the two radices; "
-              f"plain {plain_ms:.1f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {macs} 32x32->64 "
-              "multiply-adds)")
+              f"K5 {ms:.4f} ms, K1 {k1_ms:.4f} ms on the same rows, both "
+              f"four lanes a row on one row function, K5/K1 "
+              f"{ms / k1_ms:.3f}: radix 16 against radix 32; plain "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{macs} 32x32->64 multiply-adds of the function; the kernel "
+              f"executes {executed}, {executed / macs:.4f}x)")
         check(differ_k1 <= overflow, f"B={b}: K5 and K1 differ on rows "
               "that do not overflow")
+    print(f"[radix-sweep] K5 entry function: {build['ptxas']}; "
+          f"{build['lanes_per_row']} lanes a row")
     return per_batch, compared, err, launches
 
 
@@ -1461,6 +1575,14 @@ def phase_faults(v, items, want):
     return out
 
 
+def source_line(fn):
+    """``path:line`` of ``fn``'s ``def``, the path from the repository
+    root."""
+    path = os.path.relpath(inspect.getsourcefile(fn),
+                           os.path.dirname(os.path.abspath(__file__)))
+    return f"{path}:{inspect.getsourcelines(fn)[1]}"
+
+
 def kernel_entry(name, source, replaces, jax_function, launches,
                  rows_compared, err, per_batch, batch, card, **extra):
     """One entry of the kernels line; ``batch`` keys its headline numbers
@@ -1523,10 +1645,10 @@ def main() -> int:
     del txset_rows, catchup_rows
     k2_sweep = phase_block_sweep("verify_hot", k2_rows, vk.HOT_BLOCK_THREADS)
     del k2_rows
-    hashing = phase_hashing(dev, rng, info)
+    hashing = phase_hashing(dev, rng, info, builds["sha256"]["executed"])
     check_dispatch_clean([default_hasher()], "hashing")
     r16_batch, r16_compared, r16_err, r16_launches = phase_radix_sweep(
-        dev, rng, info, main_items)
+        dev, rng, info, main_items, builds["verify_r16"])
     k4_batch, k4_compared, k4_launches = phase_sharded(dev, k1_ops, per_batch)
     del k1_ops
     split, split_v = phase_split(dev, txset_items, txset_want)
@@ -1551,11 +1673,9 @@ def main() -> int:
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
                      hashing["launches"], hashing["rows_compared"],
-                     hashing["max_abs_err"],
-                     {str(HASH_MSGS): {k: hashing[k] for k in (
-                         "ms", "plain_ms", "bound_ms", "bound_by",
-                         "active_blocks", "ops_per_block")}}, HASH_MSGS, info["smi"]),
-        kernel_entry("verify_sharded", "stellar_tpu_torch/ops/verify.py:186",
+                     hashing["max_abs_err"], hashing["by_batch"], HASH_MSGS,
+                     info["smi"], **builds["sha256"]),
+        kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
                      k4_launches, k4_compared, 0.0, k4_batch,
                      f"card x {SPLIT}:{KERNEL_BATCHES[0]}", info["smi"],
@@ -1565,7 +1685,7 @@ def main() -> int:
                      "stellar_tpu/ops/edwards.py:540",
                      "signed_digits16_dev + _double_scalarmult16",
                      r16_launches, r16_compared, r16_err, r16_batch,
-                     KERNEL_BATCHES[0], info["smi"])]
+                     KERNEL_BATCHES[0], info["smi"], **builds["verify_r16"])]
     print("[metrics] " + json.dumps({
         "txset_sigs": TXSET_SIGS, "txset_p50_ms": txset["p50_ms"],
         "txset_p90_ms": txset["p90_ms"],

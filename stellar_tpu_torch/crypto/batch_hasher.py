@@ -133,7 +133,8 @@ def hash_many(blobs: Sequence[bytes], device=None) -> List[bytes]:
     """SHA-256 of each blob, equal to ``hashlib.sha256(blob).digest()``.
     Fewer than ``MIN_DEVICE_HASH_BATCH`` blobs are hashed with
     ``hashlib``; more go through :func:`default_hasher` on ``device``
-    (default: the first CUDA card, raising when there is none)."""
+    (default: every visible CUDA card, the batch split over them, or the
+    one card unsplit; raising when there is none)."""
     blobs = list(blobs)
     if len(blobs) < MIN_DEVICE_HASH_BATCH:
         return [hashlib.sha256(b).digest() for b in blobs]

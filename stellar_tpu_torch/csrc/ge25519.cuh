@@ -41,13 +41,6 @@ FE_FN void ge_p3_0(ge_p3& h) {
   fe_0(h.T);
 }
 
-// 3 multiplies
-FE_CALL void ge_p1p1_to_p2(ge_p2& r, const ge_p1p1& p) {
-  fe_mul(r.X, p.X, p.T);
-  fe_mul(r.Y, p.Y, p.Z);
-  fe_mul(r.Z, p.Z, p.T);
-}
-
 // 4 multiplies
 FE_CALL void ge_p1p1_to_p3(ge_p3& r, const ge_p1p1& p) {
   fe_mul(r.X, p.X, p.T);
@@ -69,13 +62,6 @@ FE_CALL void ge_p2_dbl(ge_p1p1& r, const ge_p2& p) {
   fe_sub(r.Z, r.Z, r.X);
   fe_sub(r.X, t0, r.Y);
   fe_sub(r.T, r.T, r.Z);
-}
-
-// r = 2p from an extended point, T kept for the adds that follow once r
-// goes to ge_p3: 4 squarings
-FE_CALL void ge_p3_dbl(ge_p1p1& r, const ge_p3& p) {
-  const ge_p2 q = {p.X, p.Y, p.Z};
-  ge_p2_dbl(r, q);
 }
 
 // cached form of p: 1 multiply (ref10 ge_p3_to_cached)

@@ -6,21 +6,24 @@
 // message after padding and big-endian packing on the host
 // (ops/sha256.py:pack_messages).
 //
-// What bounds it: 32-bit integer and logic operations, about 1,380 a
-// compressed block as built for sm_90a (nvcc makes Ch, Maj and each
-// three-way XOR one LOP3, each rotate one funnel shift, and folds the add
-// chains into IADD3; chip_smoke.py counts them from the SASS), against
-// 520 bytes read and 32 written a row at the capacity of 8 blocks. At 64
-// such operations a clock per SM both bounds sit under a microsecond at
-// a 2,048-row bucket, so a launch is bound by its own latency first.
+// What bounds it: 32-bit integer add, logic and shift operations, 1,384 a
+// compressed block by the standard's count (chip_smoke.py), against 552
+// bytes a row at the capacity of 8 blocks. nvcc makes Ch, Maj and each
+// three-way XOR one LOP3, each rotate one funnel shift (SHF), and folds
+// the add chains into IADD3, so the built loop does the function's work
+// and little else. On the H100 a warp takes about 3,900 cycles a block,
+// at 2,048 rows as at 16,384: about what its scheduler's integer pipe
+// needs if a funnel shift issues every 4 cycles and the rest every 2.
 //
-// Design (first, simple version): one thread per message, the state and
-// the 16-word rolling schedule in registers (the 64 rounds unrolled, so
-// every schedule index is a constant), the round constants in
-// __constant__ memory (the lanes of a warp read the same one). A block is
-// read as four 16-byte loads. Inactive blocks are skipped. Additions wrap
-// natively mod 2^32: the reference's split-carry adds serve its interval
-// prover only.
+// Design: one thread per message, the state and the 16-word rolling
+// schedule in registers (the 64 rounds unrolled, so every schedule index
+// is a constant), the round constants in __constant__ memory (the lanes of
+// a warp read the same one). A block is read as four 16-byte loads.
+// Inactive blocks are skipped. Additions wrap natively mod 2^32: the
+// reference's split-carry adds serve its interval prover only. Two warps
+// for 32 rows, one compressing while the other loads and expands the next
+// block, ran 20-22% faster at 2,048 rows but 14-17% slower at 16,384,
+// where the card is full and the split only adds work (PERF.md).
 #include "sha256.cuh"
 
 #include "launch.cuh"

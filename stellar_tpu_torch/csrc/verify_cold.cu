@@ -28,6 +28,9 @@
 // a round are not carried (ge25519_x4.cuh states the bounds), which
 // leaves a round about 300 instructions a lane.
 //
+// The row is verify_lanes.cuh's verify_row_lanes at 5 bits a window,
+// which K5 (verify_r16.cu) instantiates at 4:
+//
 // * Decompress and the final encode (one square-root chain, one
 //   inversion) are one chain each; all four lanes compute them, in the
 //   time one would, and lane 0 stores the bit.
@@ -51,126 +54,15 @@
 // and libsodium's verify is itself variable-time.
 #include <stdint.h>
 
-#include "ge25519_x4.cuh"
+#include "verify_lanes.cuh"
 
 struct verify_consts {
   ge_consts c;
   ge_precomp base[16];  // v*B for v = 1..16
 };
 
-// Entries of a cached table (multiples 0..16) and its field elements.
-constexpr int kEntries = 17;
-constexpr int kTableFe = 4 * kEntries;
-
-// Signed radix-32 recode: 52 digits, least significant first, in [-16, 16)
-// except the top one, which keeps the last carry and is at most 2 for any
-// 256-bit scalar (window 51 holds only bit 255). So |digit| <= 16 always.
-FE_FN void recode32(int8_t d[52], const uint8_t s[32]) {
-  int carry = 0;
-  for (int i = 0; i < 52; ++i) {
-    const int bit = 5 * i;
-    const int byte = bit >> 3;
-    int v = s[byte];
-    if (byte + 1 < 32) v |= s[byte + 1] << 8;
-    int e = ((v >> (bit & 7)) & 31) + carry;
-    carry = 0;
-    if (i < 51 && e >= 16) {
-      e -= 32;
-      carry = 1;
-    }
-    d[i] = (int8_t)e;
-  }
-}
-
-// The device bit for one row, on ``L`` lanes starting at ``lane0`` (the
-// card: L = 1, this thread's lane; the host build: L = 4, the group's
-// lanes in turn). ``btab`` is the staged B-table, ``atab`` this row's
-// space for the table of -A, kTableFe elements each.
-template <int L>
-FE_FN int verify_row_lanes(int lane0, const uint8_t a[32],
-                           const uint8_t r[32], const uint8_t s[32],
-                           const uint8_t h[32], const ge_consts& c,
-                           const fe* btab, fe* atab) {
-  ge_p3 nega;
-  const int ok = ge_frombytes_negate(nega, a, c);
-  int8_t sd[52], hd[52];
-  recode32(sd, s);
-  recode32(hd, h);
-
-  fe own[L], q[L], op[L], p1[L], g[4];
-  // the table of -A: entries 0 (identity) and 1, then 2 by a doubling and
-  // 3..16 by adding entry 1
-#pragma unroll
-  for (int j = 0; j < L; ++j)
-    fe_pick4(own[j], lane0 + j, nega.X, nega.Y, nega.Z, nega.T);
-  x4_gather_xy<L>(g, own);
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const int lane = lane0 + j;
-    x4_identity_cached(op[j], lane);
-    atab[lane] = op[j];
-    x4_to_cached(p1[j], lane, g, c.d2);
-    atab[4 + lane] = p1[j];
-    x4_dbl_r1(q[j], lane, g);
-  }
-  x4_gather<L>(g, q);
-#pragma unroll
-  for (int j = 0; j < L; ++j) x4_dbl_r2(own[j], lane0 + j, g);
-  for (int k = 2; k < kEntries; ++k) {
-    if (k > 2) {
-#pragma unroll
-      for (int j = 0; j < L; ++j) x4_add_r1(q[j], lane0 + j, g, p1[j]);
-      x4_gather<L>(g, q);
-#pragma unroll
-      for (int j = 0; j < L; ++j) x4_add_r2(own[j], lane0 + j, g);
-    }
-    x4_gather_xy<L>(g, own);
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      x4_to_cached(op[j], lane0 + j, g, c.d2);
-      atab[4 * k + lane0 + j] = op[j];
-    }
-  }
-  x4_sync();
-
-  // Strauss-Shamir over both scalars, most significant window first,
-  // from the identity (0, 1, 1, 0)
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const int lane = lane0 + j;
-    fe_0(own[j]);
-    own[j].v[0] = lane == 1 || lane == 2;
-  }
-  for (int w = 51; w >= 0; --w) {
-    const int doublings = w == 51 ? 0 : 5;
-    for (int i = 0; i < doublings; ++i) {
-      x4_gather_xy<L>(g, own);
-#pragma unroll
-      for (int j = 0; j < L; ++j) x4_dbl_r1(q[j], lane0 + j, g);
-      x4_gather<L>(g, q);
-#pragma unroll
-      for (int j = 0; j < L; ++j) x4_dbl_r2(own[j], lane0 + j, g);
-    }
-    // s*B, then h*(-A); a zero digit adds the identity
-    for (int t = 0; t < 2; ++t) {
-      const fe* tab = t ? atab : btab;
-      const int digit = t ? hd[w] : sd[w];
-      x4_gather_xy<L>(g, own);
-#pragma unroll
-      for (int j = 0; j < L; ++j) {
-        x4_entry(op[j], lane0 + j, tab, digit);
-        x4_add_r1(q[j], lane0 + j, g, op[j]);
-      }
-      x4_gather<L>(g, q);
-#pragma unroll
-      for (int j = 0; j < L; ++j) x4_add_r2(own[j], lane0 + j, g);
-    }
-  }
-
-  x4_gather<L>(g, own);
-  const ge_p3 acc = {g[0], g[1], g[2], g[3]};
-  return ok & ge_p3_encodes_to(acc, r);
-}
+// The cached tables' field elements: 17 entries of 4 components.
+constexpr int kTableFe = ladder<5>::table_fe;
 
 #ifndef __CUDACC__
 // The kernel's bit for one row, its four lanes run in turn on the host.
@@ -179,7 +71,7 @@ inline int verify_row_x4(const uint8_t a[32], const uint8_t r[32],
                          const verify_consts& K) {
   fe btab[kTableFe], atab[kTableFe];
   for (int i = 0; i < kTableFe; ++i) x4_stage_affine(btab, K.base, i);
-  return verify_row_lanes<4>(0, a, r, s, h, K.c, btab, atab);
+  return verify_row_lanes<4, 5>(0, a, r, s, h, K.c, btab, atab);
 }
 #endif
 
@@ -228,7 +120,8 @@ verify_cold_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ r,
     reinterpret_cast<uint4*>(rh)[k] = reinterpret_cast<const uint4*>(h + off)[k];
   }
   const int lane = threadIdx.x % kLanes;
-  const int bit = verify_row_lanes<1>(lane, ra, rr, rs, rh, *c, btab, atab);
+  const int bit =
+      verify_row_lanes<1, 5>(lane, ra, rr, rs, rh, *c, btab, atab);
   if (lane == 0 && row < n) out[row] = (uint8_t)bit;
 }
 

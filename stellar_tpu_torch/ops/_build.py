@@ -52,14 +52,15 @@ class _Spec(NamedTuple):
 
 
 LIBRARIES = {
-    "verify_cold": _Spec(("verify_cold.cu", "ge25519_x4.cuh", "ge25519.cuh",
-                          "fe25519.cuh", "launch.cuh"), "kernel_consts", 4,
-                         1),
+    "verify_cold": _Spec(("verify_cold.cu", "verify_lanes.cuh",
+                          "ge25519_x4.cuh", "ge25519.cuh", "fe25519.cuh",
+                          "launch.cuh"), "kernel_consts", 4, 1),
     "verify_hot": _Spec(("verify_hot.cu", "verify_hot.cuh",
                          "ge25519_x4.cuh", "ge25519.cuh", "fe25519.cuh",
                          "launch.cuh"), "hot_kernel_consts", 4, 1),
     "sha256": _Spec(("sha256.cu", "sha256.cuh", "launch.cuh"), None, 2, 1),
-    "verify_r16": _Spec(("verify_r16.cu", "ge25519.cuh", "fe25519.cuh",
+    "verify_r16": _Spec(("verify_r16.cu", "verify_lanes.cuh",
+                         "ge25519_x4.cuh", "ge25519.cuh", "fe25519.cuh",
                          "launch.cuh"), "r16_kernel_consts", 4, 0),
 }
 

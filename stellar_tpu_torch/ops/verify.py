@@ -28,10 +28,11 @@ afterwards.
 * :func:`verify_kernel`, :func:`verify_kernel_hot` and
   :func:`verify_kernel_r16` launch the hand-written CUDA kernels
   (``csrc/verify_cold.cu``, ``csrc/verify_hot.cu``, ``csrc/verify_r16.cu``)
-  for CUDA tensors and take the plain versions only for CPU tensors. K1
-  and K2 run four threads a row, one coordinate of the accumulator each,
+  for CUDA tensors and take the plain versions only for CPU tensors. All
+  three run four threads a row, one coordinate of the accumulator each,
   on the two-round parallel Edwards formulas of ``csrc/ge25519_x4.cuh``;
-  K5 runs one thread a row.
+  K1 and K5 are one row function (``csrc/verify_lanes.cuh``) at 5 and 4
+  bits a window.
   ``.launches`` on each counts its kernel launches; on
   :func:`verify_kernel_sharded` it counts the calls of its callables that
   launched K1 on the card.
@@ -188,10 +189,10 @@ def verify_kernel_r16(a_bytes, r_bytes, s_bytes, h_bytes):
     """K5: (batch, 32) uint8 A, R, s, h -> (batch,) bool, K1's bit from
     the radix-16 arm.
 
-    CUDA tensors launch ``csrc/verify_r16.cu`` on the current stream (no
-    synchronise); CPU tensors run :func:`verify_kernel_r16_plain`; any
-    other device raises. A build or launch failure raises — nothing falls
-    back."""
+    CUDA tensors launch ``csrc/verify_r16.cu`` (four threads a row) on
+    the current stream (no synchronise); CPU tensors run
+    :func:`verify_kernel_r16_plain`; any other device raises. A build or
+    launch failure raises — nothing falls back."""
     return _verify("verify_r16", verify_kernel_r16, verify_kernel_r16_plain,
                    (a_bytes, r_bytes, s_bytes, h_bytes), _COLD_SHAPES)
 

@@ -1,7 +1,7 @@
 """K1, K2, K3 and K5 on the card: each hand-written CUDA kernel against
 its plain PyTorch version on the same CUDA tensors, bit for bit and word
-for word (integer arithmetic, tolerance zero), K1 and K2 also at ragged
-sizes and at each block size they take; K4 over the one card named
+for word (integer arithmetic, tolerance zero), all four also at ragged
+sizes (K3 at 16,384 rows too), K1 and K2 at each block size they take; K4 over the one card named
 four times against K1; and the batch verifier's (unsplit and split) and
 hasher's main paths through the kernels.
 
@@ -218,6 +218,39 @@ def test_sha256_kernel_matches_plain_and_hashlib(card):
                                   tsk.host_digest_words(msgs))
 
 
+def _sha_rows(rng, n):
+    """``n`` packed rows: messages of every length up to the capacity, the
+    block edges first, with a row of no active block and a row whose
+    active blocks are not a prefix every 64 rows, so that the rows of one
+    warp have different active-block counts."""
+    lens = [0, 55, 56, 63, 64, 119, 120, 503]
+    lens += [int(k) for k in rng.integers(0, 504, max(0, n - len(lens)))]
+    words, active, fits = tsk.pack_messages([rng.bytes(k) for k in lens[:n]],
+                                            8)
+    assert fits.all()
+    active[5::64] = False
+    words[7::64] = rng.integers(0, 2**32, words[7::64].shape,
+                                dtype=np.uint32)
+    active[7::64] = [True, False, True, True, False, False, True, False]
+    return words, active
+
+
+@pytest.mark.parametrize("batch", [1, 5, 127, 129, 2047, 16384])
+def test_sha256_kernel_matches_plain_at_size(card, batch):
+    words, active = _sha_rows(np.random.default_rng(70), batch)
+    w = torch.from_numpy(words).to(card)
+    a = torch.from_numpy(active).to(card)
+    before = tsk.sha256_kernel.launches
+    got = tsk.sha256_kernel(w, a)
+    torch.cuda.synchronize(card)
+    assert tsk.sha256_kernel.launches == before + 1
+    want = tsk.sha256_kernel_plain(w, a)
+    assert torch.equal(got.cpu(), want.cpu())
+    if batch > 5:
+        np.testing.assert_array_equal(got.cpu().numpy()[5],
+                                      np.array(tsk.H0, np.uint32))
+
+
 def test_batch_hasher_main_path_on_card(card):
     rng = np.random.default_rng(67)
     msgs = [rng.bytes(int(n)) for n in rng.integers(0, 2000, 600)]
@@ -253,6 +286,19 @@ def test_r16_kernel_matches_plain_at_bucket(card, batch):
     head = got[n_edge:n_edge + 32].tolist()
     assert head == [True] * 16 + [True, False] * 8
     assert "registers" in _build.build_log(_build.library_path("verify_r16"))
+
+
+@pytest.mark.parametrize("batch", [1, 5, 127, 129, 2047])
+def test_r16_kernel_matches_plain_at_ragged_size(card, batch):
+    """Rows past n inside a group of four lanes, and partial warps: the
+    head of phase 11's rows (edge corpus, matching and overflow rows)."""
+    rows, _ = _r16_rows(np.random.default_rng(71), 2048)
+    rows = tuple(np.ascontiguousarray(x[:batch]) for x in rows)
+    ops = tuple(torch.from_numpy(x).to(card) for x in rows)
+    got = tvk.verify_kernel_r16(*ops)
+    torch.cuda.synchronize(card)
+    want = tvk.verify_kernel_r16_plain(*ops)
+    assert torch.equal(got, want), torch.nonzero(got != want).flatten()
 
 
 @pytest.mark.parametrize("batch", [128, 2048])

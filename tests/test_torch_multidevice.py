@@ -3,10 +3,12 @@
 ``verify_kernel_sharded(batch_mesh(4))`` (conftest forces 8 virtual CPU
 devices) at B = 16, bit for bit; the split ``BatchVerifier`` and
 ``BatchHasher`` against the single-device port and the oracle; and the
-default entry points' choice of devices. Integer results: tolerance
-zero."""
+default entry points' choice of devices; and the source line that
+``chip_smoke.py`` names for K4. Integer results: tolerance zero."""
 
 import hashlib
+import importlib.util
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -160,3 +162,18 @@ def test_default_entry_points_follow_auto_devices(monkeypatch, module,
                         lambda d: torch.device("cpu"))
     one = default()
     assert one.devices is None and one.device == torch.device("cpu")
+
+
+def test_k4_source_line_points_at_the_function():
+    """The kernels line's K4 source is derived from the function, so it
+    names the line of ``def verify_kernel_sharded`` in the port."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    path, line = smoke.source_line(tvk.verify_kernel_sharded).split(":")
+    assert path == "stellar_tpu_torch/ops/verify.py"
+    with open(os.path.join(root, path)) as f:
+        assert f.read().splitlines()[int(line) - 1].startswith(
+            "def verify_kernel_sharded(")

@@ -4,11 +4,14 @@ package's radix-16 composition (``signed_digits16_dev``,
 ``_double_scalarmult16``, decompress and ``compress_equals``, as the
 radix sweep of ``tools/kernel_cost.py`` builds it) at one shape (B = 16),
 limb for limb through every stage and bit for bit at the end; and the
-CUDA source's per-row function (``csrc/verify_r16.cu``), compiled here
-for the host with g++, against the plain version. Rows include scalars
-whose top radix-16 digit exceeds the 8-entry table (s >= 9 * 2^252),
-where the select yields the zero point and the bit is True exactly when
-R is 32 zero bytes. Integer arithmetic throughout: tolerance zero."""
+CUDA source's per-row function (``csrc/verify_r16.cu`` over
+``csrc/verify_lanes.cuh``: K1's four-lane row at 4 bits a window, its
+four lanes run in turn), compiled here for the host with g++, against the
+plain version and the JAX composition. Rows include scalars whose top
+radix-16 digit exceeds the 8-entry table (s >= 9 * 2^252), in s alone, in
+h alone and in both, where the select yields the zero point and the bit
+is True exactly when R is 32 zero bytes. Integer arithmetic throughout:
+tolerance zero."""
 
 import ctypes
 import importlib.util
@@ -172,7 +175,8 @@ def test_base_table_is_the_references():
 def test_r16_kernel_multiplies_counts_the_op_sequence():
     """chip_smoke.py's K5 bound: per row 1,521 squarings (55 products)
     and 912 multiplies (100), then 7 multiplies for each nonzero digit of
-    s and 8 for each of h."""
+    s and 8 for each of h; and what the four-lane K5 executes whatever
+    the digits, 1,521 squarings and 2,061 multiplies a row."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -184,6 +188,8 @@ def test_r16_kernel_multiplies_counts_the_op_sequence():
     one[0, 0] = 1  # one nonzero digit
     assert smoke.r16_kernel_multiplies(one, zero) == 2 * fixed + 700
     assert smoke.r16_kernel_multiplies(zero, one) == 2 * fixed + 800
+    # the four-lane kernel: every doubling makes T, every window both adds
+    assert smoke.r16_kernel_executed(2) == 2 * (1521 * 55 + 2061 * 100)
 
 
 def test_zero_and_overflow_digits_select_as_the_reference():
@@ -209,20 +215,50 @@ extern "C" int verify_r16_rows_host(const uint8_t* a, const uint8_t* r,
   verify_r16_consts K;
   memcpy(&K, consts, sizeof(K));
   for (int i = 0; i < n; ++i)
-    out[i] = (uint8_t)verify_r16_row(a + 32 * i, r + 32 * i, s + 32 * i,
-                                     h + 32 * i, K);
+    out[i] = (uint8_t)verify_r16_row_x4(a + 32 * i, r + 32 * i, s + 32 * i,
+                                        h + 32 * i, K);
   return (int)sizeof(K);
 }
 extern "C" void recode16_host(const uint8_t* s, int8_t* d) {
   recode16(d, s);
+}
+// The zero entry (index 9 of a radix-16 table) added to the extended
+// point p in four-lane rounds, the lanes run in turn, then ``doublings``
+// doublings: the point out (4 x 10 limbs) and whether it encodes to 32
+// zero bytes.
+extern "C" int x4_add_zero_host(const int32_t* p, int doublings,
+                                int32_t* out) {
+  fe own[4], g[4], q[4], op[4];
+  fe tab[Radix16::table_fe];
+  memset(tab, 0x55, sizeof(tab));
+  for (int j = 0; j < 4; ++j) fe_0(tab[4 * (Radix16::multiples + 1) + j]);
+  memcpy(own, p, sizeof(own));
+  x4_gather_xy<4>(g, own);
+  for (int j = 0; j < 4; ++j) {
+    x4_entry(op[j], j, tab, Radix16::multiples + 1);
+    x4_add_r1(q[j], j, g, op[j]);
+  }
+  x4_gather<4>(g, q);
+  for (int j = 0; j < 4; ++j) x4_add_r2(own[j], j, g);
+  for (int i = 0; i < doublings; ++i) {
+    x4_gather_xy<4>(g, own);
+    for (int j = 0; j < 4; ++j) x4_dbl_r1(q[j], j, g);
+    x4_gather<4>(g, q);
+    for (int j = 0; j < 4; ++j) x4_dbl_r2(own[j], j, g);
+  }
+  memcpy(out, own, sizeof(own));
+  const ge_p3 acc = {own[0], own[1], own[2], own[3]};
+  const uint8_t zero[32] = {0};
+  return ge_p3_encodes_to(acc, zero);
 }
 """
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """csrc/verify_r16.cu's host-compilable part, built with g++ behind a
-    small C shim."""
+    """csrc/verify_r16.cu's host-compilable part (everything outside
+    __CUDACC__, with ge25519_x4.cuh's four lanes run in turn), built with
+    g++ behind a small C shim."""
     d = tmp_path_factory.mktemp("host_r16")
     shim = d / "shim.cpp"
     shim.write_text(_HOST_SHIM)
@@ -236,6 +272,8 @@ def host_lib(tmp_path_factory):
                                          vp]
     lib.verify_r16_rows_host.restype = ctypes.c_int
     lib.recode16_host.argtypes = [vp, vp]
+    lib.x4_add_zero_host.argtypes = [vp, ctypes.c_int, vp]
+    lib.x4_add_zero_host.restype = ctypes.c_int
     return lib
 
 
@@ -265,22 +303,95 @@ def test_cuda_recode16_on_host_matches_plain(host_lib):
         np.testing.assert_array_equal(d[::-1].astype(np.int32), want[:, i])
 
 
-def test_cuda_verify_r16_row_on_host_matches_plain(host_lib, rows):
-    """The kernel's per-row function, run on the host, gives the plain
-    version's bit on every row: the B = 16 rows above and 40 more (edge
-    corpus, matching and overflow rows, random bytes)."""
+def test_cuda_verify_r16_row_on_host_matches_plain(host_lib, rows,
+                                                   jax_out):
+    """The kernel's per-row function (verify_r16_row_x4, its four lanes
+    run in turn), on the host, gives the JAX composition's bit on the
+    B = 16 rows above, and the plain version's bit on those and on the
+    whole edge corpus, matching and overflow rows and random bytes."""
     rng = np.random.default_rng(64)
     _, edge = Ed25519Workload().encode(vectors.edge_corpus(rng))
     match = vectors.r16_matching_rows(rng, 6)
     over = vectors.r16_overflow_rows(rng, 8)
     rand = vectors.random_rows(rng, 6)
     more = tuple(np.ascontiguousarray(np.concatenate(
-        [edge[k][:20], match[k], over[k], rand[k]])) for k in range(4))
+        [edge[k], match[k], over[k], rand[k]])) for k in range(4))
+    np.testing.assert_array_equal(_host_bits(host_lib, rows), jax_out[0])
     for batch in (rows, more):
         plain = tvk.verify_kernel_r16_plain(*_t(batch)).numpy()
         np.testing.assert_array_equal(_host_bits(host_lib, batch), plain)
         assert plain.any() and not plain.all()
-    assert plain[26:34].tolist() == [True, False] * 4
+    n_edge = len(edge[0])
+    assert plain[n_edge:n_edge + 6].all()
+    assert plain[n_edge + 6:n_edge + 14].tolist() == [True, False] * 4
+
+
+def _overflow_rows(rng, which, zero_r, n=4):
+    """``n`` rows over fresh keys whose s (``which`` "s"), h ("h") or both
+    ("both") lie at or above R16_OVERFLOW, the other scalar below it, with
+    R = 32 zero bytes (``zero_r``: the bit True) or R = encode(s*B +
+    h*(-A)) (the bit False). The first rows take R16_OVERFLOW, 9 * 2^252
+    and 2^256 - 1."""
+    lo = vectors.R16_OVERFLOW
+    extremes = [lo, 9 * 2**252, 2**256 - 1]
+
+    def draw(big, i):
+        v = int.from_bytes(rng.bytes(32), "little")
+        if not big:
+            return v % lo
+        return extremes[i] if i < len(extremes) else lo + v % (2**256 - lo)
+
+    a, r, s, h = (np.zeros((n, 32), np.uint8) for _ in range(4))
+    for i in range(n):
+        _, pk = vectors.keypair(rng)
+        sv = draw(which != "h", i)
+        hv = draw(which != "s", n - 1 - i)
+        point = ref.point_add(ref.scalarmult_base(sv), ref.point_mul(
+            hv, vectors._neg(ref.point_decompress(pk))))
+        a[i] = np.frombuffer(pk, np.uint8)
+        r[i] = np.frombuffer(bytes(32) if zero_r
+                             else ref.point_compress(point), np.uint8)
+        s[i] = np.frombuffer(sv.to_bytes(32, "little"), np.uint8)
+        h[i] = np.frombuffer(hv.to_bytes(32, "little"), np.uint8)
+    return a, r, s, h
+
+
+@pytest.mark.parametrize("zero_r", [True, False], ids=["r0", "rpoint"])
+@pytest.mark.parametrize("which", ["s", "h", "both"])
+def test_cuda_verify_r16_row_on_host_overflow(host_lib, which, zero_r):
+    """Overflow in s alone, in h alone and in both: the four-lane row adds
+    the zero entry and ends at the zero point, so its bit is True exactly
+    when R is 32 zero bytes, the plain version's bit on every row."""
+    rows = _overflow_rows(np.random.default_rng(65), which, zero_r)
+    s, h = _t(rows[2:])
+    tops = [tvk.signed_digits16(x)[0] > 8 for x in (s, h)]
+    assert tops[0].all() == (which != "h") and tops[1].all() == \
+        (which != "s") and (tops[0] | tops[1]).all()
+    plain = tvk.verify_kernel_r16_plain(*_t(rows)).numpy()
+    assert plain.tolist() == [zero_r] * len(plain)
+    np.testing.assert_array_equal(_host_bits(host_lib, rows), plain)
+
+
+def test_x4_zero_entry_gives_the_zero_point(host_lib):
+    """The zero entry, added in four-lane rounds to the identity, the
+    small-order points and multiples of B at random projective scales,
+    gives (0, 0, 0, 0), which stays there through doublings and encodes
+    to 32 zero bytes."""
+    rng = np.random.default_rng(66)
+    small = [ref.point_decompress(e) for e in ref.SMALL_ORDER_ENCODINGS]
+    pts = [ref.IDENTITY] + [p for p in small if p is not None]
+    pts += [ref.scalarmult_base(int(rng.integers(1, 2**62)))
+            for _ in range(6)]
+    out = np.zeros((4, 10), np.int32)
+    for x, y, z, t in pts:
+        k = int(rng.integers(1, 2**62))
+        p = np.ascontiguousarray(np.stack([state.to_radix25_5(v * k % ref.P)
+                                           for v in (x, y, z, t)]))
+        for doublings in (0, 4):
+            out[:] = 1
+            assert host_lib.x4_add_zero_host(p.ctypes.data, doublings,
+                                             out.ctypes.data) == 1
+            assert not out.any()
 
 
 def test_r16_consts_are_the_curve_constants():

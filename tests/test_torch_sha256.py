@@ -6,12 +6,15 @@ exactly (digest words and bytes, tolerance zero).
 * ``sha256_kernel_plain`` equals JAX ``sha256_kernel`` at one bucket
   (B = 128, one compile in one module fixture) and hashlib;
 * the CUDA source's compression function, compiled here for the host with
-  g++, equals hashlib and the plain version;
+  g++, equals hashlib and the plain version, at every padding edge too;
+* ``chip_smoke.py``'s K3 bound counts the standard's 1,384 operations a
+  block;
 * ``BatchHasher(device="cpu")`` equals hashlib, oversize rows and padding
   lanes included; ``hash_many``'s policy."""
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import subprocess
 
@@ -166,6 +169,52 @@ def test_cuda_compression_on_host(host_lib, packed, jax_digests):
                               out.ctypes.data, len(more), w.shape[1])
     assert [tsk.digest_words_to_bytes(r) for r in out] == \
         [hashlib.sha256(m).digest() for m in more]
+
+
+def _host_words(lib, words, active):
+    out = np.zeros((len(words), 8), np.uint32)
+    flags = np.ascontiguousarray(active.astype(np.uint8))
+    words = np.ascontiguousarray(words)
+    lib.sha256_rows_host(words.ctypes.data, flags.ctypes.data,
+                         out.ctypes.data, len(words), words.shape[1])
+    return out
+
+
+def test_cuda_compression_on_host_block_edges(host_lib):
+    """Messages at every padding edge (0, 55, 56, 63, 64, 119, 120 and 503
+    bytes: one to eight blocks) among random lengths, so that the rows of
+    one warp's 32 have different active-block counts, then 32 rows with no
+    active block: hashlib's digests, H0, and the plain version's words on
+    every row."""
+    rng = np.random.default_rng(96)
+    lens = [0, 1, 55, 56, 63, 64, 65, 119, 120, 503]
+    lens += [int(n) for n in rng.integers(0, 504, 54)]
+    msgs = [rng.bytes(n) for n in lens]
+    w, a, fits = tsk.pack_messages(msgs, tbh.MAX_BLOCKS)
+    assert fits.all()
+    w = np.concatenate([w, np.zeros((32, tbh.MAX_BLOCKS, 16), np.uint32)])
+    a = np.concatenate([a, np.zeros((32, tbh.MAX_BLOCKS), bool)])
+    assert len(set(a[:32].sum(1))) > 4
+    out = _host_words(host_lib, w, a)
+    assert [tsk.digest_words_to_bytes(r) for r in out[:64]] == \
+        [hashlib.sha256(m).digest() for m in msgs]
+    np.testing.assert_array_equal(
+        out[64:], np.tile(np.array(tsk.H0, np.uint32), (32, 1)))
+    np.testing.assert_array_equal(
+        out, tsk.sha256_kernel_plain(torch.from_numpy(w),
+                                     torch.from_numpy(a)).numpy())
+
+
+def test_sha_bound_counts_the_standards_operations():
+    """chip_smoke.py's K3 bound: 1,384 32-bit operations a block from FIPS
+    180-4 (64 rounds of 14, 48 schedule words of 10, 8 feed-forward adds),
+    whatever kernel is built."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.SHA_ROUND_OPS == 14 and smoke.SHA_SCHEDULE_OPS == 10
+    assert smoke.sha_ops_per_block() == 64 * 14 + 48 * 10 + 8 == 1384
 
 
 def test_batch_hasher_on_cpu_equals_hashlib():
