@@ -26,7 +26,14 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 4. main path, cold TxSet — the signer-table cache off;
    ``default_verifier().verify_batch`` on 2,000 signatures from 2,000
    signers over 32-byte messages, 2% corrupted; every verdict equal to the
-   port's oracle; p50 and p90 of 20 calls;
+   port's oracle; p50 and p90 of 20 calls; the engine's own attribution
+   of those calls (``tracing.span_totals()`` before and after,
+   ``batch_engine.dispatch_attribution``): ms a call of prep, bucket,
+   dispatch, fetch and audit and their coverage of the root span, which
+   must be at least 0.95; and the mean over their pipeline records
+   (``pipeline_timeline.recent``) of busy_frac, overlap_frac and
+   reconciliation with the commonest largest bubble class: the host's
+   view of device occupancy, launch to delivery, not a profiler trace;
 5. main path, cold catchup — the cache off; 16,384 signatures (2,048
    signers x 8 messages, 2% corrupted) in one call, checked against the
    oracle on a seeded sample and on every corrupted row; one untimed call
@@ -46,12 +53,13 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    first call (every signer a first sight: cold, one table build each)
    timed alone, then p50 and p90 of 20 calls in which every row with a
    cacheable key rides K2; verdicts equal to the oracle and to phase 4's;
-   the host part (partition, encode with the table stack, the stack
-   alone, the pinned copy of the table operand) timed apart;
+   the engine's attribution (coverage at least 0.95) and pipeline records
+   of those calls as in phase 4, and the tables' ``np.stack`` alone;
 8. main path, hot catchup — the cache on and empty, phase 5's items: the
    first call (one K1 and one K2 launch) timed alone, then p50 and p90 of
-   10 calls; checked against the oracle on a sample and on every
-   corrupted row, and against phase 5's verdicts on every row;
+   10 calls and the engine's attribution of them; checked against the
+   oracle on a sample and on every corrupted row, and against phase 5's
+   verdicts on every row;
 9. K2 at the hot path's shapes — at B = 2,048 and 16,384: the hot path's
    own padded rows with edge rows, matching rows whose top digit
    saturates the 128-entry select, and random R, s, h over real tables
@@ -63,7 +71,7 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 10. hashing — ``default_hasher().hash_batch`` on 2,048 messages (0-503
    bytes, 2% oversize at 504-2,000 bytes), every digest equal to
    hashlib's; p50 and p90 of 20 calls beside hashlib's time for the same
-   messages; then K3 against its plain version and hashlib on the call's
+   messages, and the engine's ``hash.*`` attribution of them; then K3 against its plain version and hashlib on the call's
    own rows at B = 2,048 and on 16,384 new messages of the same length
    mix, timed as the host issues the launches and queued behind a spin
    (K3 runs shorter than a launch from Python), beside its bound (the
@@ -88,7 +96,21 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    host oracle's backend (native libcrypto or pure Python), and its cost
    part by part (policy gate, native batch at its own thread count and
    on one thread) for a TxSet's and a catchup call's audit;
-15. fault domains, last — on the 4-index verifier: ``fail-device`` on
+15. the deadline on the card — the cold TxSet at a 200 ms deadline on a
+   one-card verifier of its own, behind a 2.5 s ``torch.cuda._sleep``
+   spin on the card's stream: the call raises within 1.0 s while the spin
+   still runs, the card's breaker charged once, one deadline miss, a
+   ``watchdog-timeout:device0`` dump holding the open ``verify.fetch``
+   span; after the spin no count moved by the abandoned fetch's late
+   completion, and the next call equals the oracle with the breaker
+   closed. Then the same on a verifier over the card named 4 times: the
+   indices share the stream, so each misses in turn and the call raises
+   within 4 x 200 ms + 0.5 s, each index charged once;
+16. the probe on the card — ``device_available()`` True from a fresh
+   state; under a 2 s probe hang False within 0.6 s (timeout 0.3 s),
+   accounted dead, and a non-blocking ask answers at once caching
+   nothing; after ``faults.clear()`` and the backoff True again;
+17. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -99,10 +121,10 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 Each kernel's launch count is set to 0 just before its path runs and read
 just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
 7-8, K3 over phase 10's calls, K5 over phase 11's sweep calls, K4 over
-phase 12's calls, K1 and K2 again over phase 13. After every main-path
-phase the dispatch must be clean: no device fault (no retry, every
-breaker closed and never opened), no audit mismatch, no conviction;
-only phase 15 expects otherwise. The engine has no host failover, so no
+phase 12's calls, K1 and K2 again over phase 13, K1 over phase 15. After
+every main-path phase the dispatch must be clean: no device fault (no
+retry, every breaker closed and never opened), no audit mismatch, no
+conviction; only phases 15 and 17 expect otherwise. The engine has no host failover, so no
 row of a card is ever served by the host. Before the last line, one
 ``{"kernels": [...]}`` line holds every kernel's launches, times, bound
 and build; the last line is ``{"ok": true, "device": {...}}``. With no
@@ -141,8 +163,9 @@ try:
     from stellar_tpu_torch.parallel.batch_engine import DEFAULT_BUCKET_SIZES
     from stellar_tpu_torch.parallel.signer_tables import (
         TABLE_ENTRIES, build_signer_table, signer_table_cache)
-    from stellar_tpu_torch.utils import faults, resilience
+    from stellar_tpu_torch.utils import faults, resilience, tracing
     from stellar_tpu_torch.utils.device import resolve_device
+    from stellar_tpu_torch.utils.timeline import pipeline_timeline
 except ImportError as e:  # run outside the repository
     _IMPORT_ERROR = e
 else:
@@ -254,12 +277,27 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 15's per-device backoff: far longer than a TxSet call (tens of
+# phase 17's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
 # and by one catchup call's
 AUDIT_ROWS = (40, 320)
+# the engine's phases printed a call, and the share of the blocking root
+# span they must cover on the cold and hot TxSet
+ATTRIBUTED_PHASES = ("prep", "bucket", "dispatch", "fetch", "audit")
+MIN_COVERAGE = 0.95
+# phase 15: the resolve deadline, ms, and the spin queued ahead of the
+# call, s; the one-card call must raise within RAISE_ONE_S and the split
+# one within SPLIT x the deadline plus RAISE_SLACK_S
+DEADLINE_PHASE_MS = 200
+STALL_S = 2.5
+RAISE_ONE_S = 1.0
+RAISE_SLACK_S = 0.5
+# phase 16: the probe's hang, s, its timeout and the answer's limit
+PROBE_HANG_S = 2.0
+PROBE_TIMEOUT_S = 0.3
+PROBE_ANSWER_S = 0.6
 
 
 class PhaseFailed(Exception):
@@ -651,6 +689,60 @@ def phase_kernel_vs_plain(dev, rng):
     return compared, err
 
 
+def engine_phases(before, after, reps, ns, label, min_coverage=None):
+    """The engine's own attribution of ``reps`` blocking calls between two
+    ``tracing.span_totals()`` snapshots: ms a call of each phase and the
+    phases' coverage of the root span (``batch_engine.
+    phase_attribution``); fails below ``min_coverage`` when one is
+    given."""
+    att = batch_engine.phase_attribution(before, after, reps, ns)
+    ms = {s: att["phases"][f"{ns}.{s}"]["per_rep_ms"]
+          for s in ATTRIBUTED_PHASES}
+    check(att["blocking_span_count"] == reps, f"{label}: "
+          f"{att['blocking_span_count']} blocking spans over {reps} calls")
+    print(f"[{label}] engine phases, ms a call over {reps} calls: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; root {att['blocking_span_per_rep_ms']:.3f}, coverage "
+          f"{att['coverage']}")
+    if min_coverage is not None:
+        check(att["coverage"] is not None and
+              att["coverage"] >= min_coverage, f"{label}: the engine's "
+              f"phases cover {att['coverage']} of the call, under "
+              f"{min_coverage}")
+    return {"phases_ms": ms, "root_ms": att["blocking_span_per_rep_ms"],
+            "coverage": att["coverage"]}
+
+
+def pipeline_view(resolves0, ns, label):
+    """Mean over the pipeline records written since ``resolves0`` (the
+    timeline's resolve count before the timed calls) of ``busy_frac``,
+    ``overlap_frac`` and ``reconciliation``, and the commonest largest
+    bubble class: the host's view of device occupancy, launch to
+    delivery, not a profiler trace."""
+    n = pipeline_timeline.totals()["resolves"] - resolves0
+    recs = [r for r in pipeline_timeline.recent(n) if r["ns"] == ns]
+    check(recs, f"{label}: no pipeline record")
+
+    def mean(key):
+        vals = [r[key] for r in recs if r[key] is not None]
+        return float(np.mean(vals)) if vals else None
+
+    classes = collections.Counter(r["largest_bubble_class"] for r in recs)
+    cls, k = classes.most_common(1)[0]
+    out = {"resolves": len(recs), "busy_frac": mean("busy_frac"),
+           "overlap_frac": mean("overlap_frac"),
+           "reconciliation": mean("reconciliation"),
+           "largest_bubble_class": cls, "largest_bubble_share":
+           k / len(recs), "largest_bubble_ms": mean("largest_bubble_ms")}
+    print(f"[{label}] pipeline timeline (the host's view of device "
+          f"occupancy, launch to delivery; not a profiler trace), mean over "
+          f"{len(recs)} resolves: busy_frac {out['busy_frac']:.4f}, "
+          f"overlap_frac {out['overlap_frac']}, reconciliation "
+          f"{out['reconciliation']:.4f}; largest bubble {cls} in {k} of "
+          f"{len(recs)} ({out['largest_bubble_ms']:.3f} ms mean)")
+    return out
+
+
 def phase_txset(rng):
     signer_table_cache.configure(enabled=False)
     t0 = time.perf_counter()
@@ -670,12 +762,17 @@ def phase_txset(rng):
     check(v.served["device"] == TXSET_SIGS,
           f"device served {v.served['device']} of {TXSET_SIGS} rows")
     times = []
+    before, resolves0 = tracing.span_totals(), \
+        pipeline_timeline.totals()["resolves"]
     for _ in range(TIMED_CALLS):
         t = time.perf_counter()
         out = v.verify_batch(items)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         check(np.array_equal(out, want), "a timed TxSet call differs")
+    phases = engine_phases(before, tracing.span_totals(), TIMED_CALLS,
+                           "verify", "txset", MIN_COVERAGE)
+    pipeline = pipeline_view(resolves0, "crypto.verify", "txset")
     p50, p90 = np.percentile(times, 50), np.percentile(times, 90)
     # the host layer alone: gates and SHA-512 mod L, no device work
     enc = []
@@ -688,8 +785,8 @@ def phase_txset(rng):
           f"{gen:.1f} s; verify_batch p50 {p50:.3f} ms, p90 {p90:.3f} ms "
           f"over {TIMED_CALLS} calls; {TXSET_SIGS / p50 * 1e3:.0f} sigs/s "
           f"at p50; host encode alone p50 {enc50:.3f} ms")
-    return ({"p50_ms": p50, "p90_ms": p90, "encode_p50_ms": enc50}, items,
-            want)
+    return ({"p50_ms": p50, "p90_ms": p90, "encode_p50_ms": enc50,
+             "engine_phases": phases, "pipeline": pipeline}, items, want)
 
 
 def phase_catchup(rng):
@@ -910,40 +1007,16 @@ def hot_path_rows(items, b):
                  for e, p in zip(enc, wl.pad_rows()))
 
 
-def hot_host_parts(dev, items, b):
-    """The host part of one hot call, timed apart (p50 of 5, ms): the
-    partition's cache lookups, the hot workload's encode (gates, SHA-512,
-    table stack), the table stack alone, and the engine's padding and
-    pinned copy of the table operand to the card. No kernel runs. The
-    lookups, padding and copy are a replica of what ``BatchVerifier.
-    submit`` and ``BatchEngine._launch`` do, timed outside the call: it
-    must follow the engine when the engine changes, until the engine
-    times its own parts."""
-    def lookups():
-        return [(it, signer_table_cache.lookup(it[0])) for it in items
-                if len(it[0]) == 32]
-
-    hot = [(it, t) for it, t in lookups() if t is not None]
-    wl = Ed25519HotWorkload()
-    tables = wl.encode(hot)[1][0]
-    pad = wl.pad_rows()[0]
-
-    def copy():
-        host = torch.empty((b,) + tables.shape[1:], dtype=torch.int16,
-                           pin_memory=True)
-        hv = host.numpy()
-        hv[:len(tables)] = tables
-        hv[len(tables):] = pad
-        host.to(dev, non_blocking=True)
-
-    parts = {"partition_ms": lookups, "encode_ms": lambda: wl.encode(hot),
-             "stack_ms": lambda: np.stack([t for _it, t in hot]),
-             "copy_ms": copy}
-    return {k: float(np.percentile(timed_ms(fn, 5), 50))
-            for k, fn in parts.items()}
+def table_stack_ms(items):
+    """p50 of 5, ms: ``np.stack`` of the cached tables of ``items``' rows,
+    alone (no engine code: the hot encode's share that stacks 15 KB a
+    row)."""
+    tables = [t for t in (signer_table_cache.lookup(it[0]) for it in items
+                          if len(it[0]) == 32) if t is not None]
+    return float(np.percentile(timed_ms(lambda: np.stack(tables), 5), 50))
 
 
-def phase_hot_txset(dev, items, want, k1_ops):
+def phase_hot_txset(items, want, k1_ops):
     """The TxSet with the cache on, from empty. ``want`` is the oracle's
     verdicts, which phase 4's cold calls equalled. One more call after the
     timed ones keeps its K1 operands in ``k1_ops["hot_txset"]``."""
@@ -960,6 +1033,8 @@ def phase_hot_txset(dev, items, want, k1_ops):
     check(signer_table_cache.snapshot()["installs"] == cacheable,
           "hot TxSet: a first sight did not install its table")
     times = []
+    before, resolves0 = tracing.span_totals(), \
+        pipeline_timeline.totals()["resolves"]
     for _ in range(TIMED_CALLS):
         hot0 = v.served["hot"]
         t = time.perf_counter()
@@ -971,22 +1046,26 @@ def phase_hot_txset(dev, items, want, k1_ops):
         check(v.served["hot"] - hot0 == cacheable,
               f"hot TxSet: K2 served {v.served['hot'] - hot0} rows, not "
               f"{cacheable}")
+    phases = engine_phases(before, tracing.span_totals(), TIMED_CALLS,
+                           "verify", "hot-txset", MIN_COVERAGE)
+    pipeline = pipeline_view(resolves0, "crypto.verify", "hot-txset")
     p50, p90 = np.percentile(times, 50), np.percentile(times, 90)
     with cold_operands(v, k1_ops.setdefault("hot_txset", [])):
         check(np.array_equal(v.verify_batch(items), want),
               "hot TxSet: the recorded call differs from the oracle")
-    parts = hot_host_parts(dev, items, KERNEL_BATCHES[0])
+    stack_ms = table_stack_ms(items)
     print(f"[hot-txset] first call (all first sights, {cacheable} table "
           f"builds) {first_ms:.1f} ms; then {cacheable} of {len(items)} "
           f"rows hot each call; verify_batch p50 {p50:.3f} ms, p90 "
-          f"{p90:.3f} ms over {TIMED_CALLS} calls; host parts p50: "
-          + ", ".join(f"{k} {v_:.3f}" for k, v_ in parts.items()))
+          f"{p90:.3f} ms over {TIMED_CALLS} calls; the tables' np.stack "
+          f"alone p50 {stack_ms:.3f} ms")
     return ({"first_ms": first_ms, "p50_ms": p50, "p90_ms": p90,
-             "hot_rows": cacheable, **parts},
+             "hot_rows": cacheable, "stack_ms": stack_ms,
+             "engine_phases": phases, "pipeline": pipeline},
             hot_path_rows(items, KERNEL_BATCHES[0]))
 
 
-def phase_hot_catchup(dev, rng, items, cold, bad, k1_ops):
+def phase_hot_catchup(rng, items, cold, bad, k1_ops):
     """The catchup call with the cache on, from empty. The K1 operands of
     the first call (its timing includes their copy on the card, a few
     microseconds) and of one more call after the timed ones go into
@@ -1014,6 +1093,7 @@ def phase_hot_catchup(dev, rng, items, cold, bad, k1_ops):
     check(np.array_equal(got[sample], want), "hot catchup: verdicts differ "
           "from the oracle on checked rows")
     times = []
+    before = tracing.span_totals()
     for _ in range(CATCHUP_CALLS):
         hot0 = v.served["hot"]
         t = time.perf_counter()
@@ -1024,19 +1104,22 @@ def phase_hot_catchup(dev, rng, items, cold, bad, k1_ops):
         check(v.served["hot"] - hot0 == cacheable,
               "hot catchup: a timed call did not serve every cacheable "
               "row hot")
+    phases = engine_phases(before, tracing.span_totals(), CATCHUP_CALLS,
+                           "verify", "hot-catchup")
     p50, p90 = np.percentile(times, 50), np.percentile(times, 90)
     with cold_operands(v, k1_ops.setdefault("hot_catchup", [])):
         check(np.array_equal(v.verify_batch(items), got),
               "hot catchup: the recorded call differs")
-    parts = hot_host_parts(dev, items, KERNEL_BATCHES[1])
+    stack_ms = table_stack_ms(items)
     print(f"[hot-catchup] first call {first_ms:.1f} ms ({first_hot} rows "
           f"hot, {n - first_hot} cold); then {cacheable} of {n} rows hot "
           f"each call; verify_batch p50 {p50:.3f} ms, p90 {p90:.3f} ms over "
           f"{CATCHUP_CALLS} calls ({n / p50 * 1e3:.0f} sigs/s at p50); "
-          f"{len(sample)} rows checked; host parts p50: "
-          + ", ".join(f"{k} {v_:.3f}" for k, v_ in parts.items()))
+          f"{len(sample)} rows checked; the tables' np.stack alone p50 "
+          f"{stack_ms:.3f} ms")
     return ({"first_ms": first_ms, "first_hot_rows": first_hot,
-             "p50_ms": p50, "p90_ms": p90, "hot_rows": cacheable, **parts},
+             "p50_ms": p50, "p90_ms": p90, "hot_rows": cacheable,
+             "stack_ms": stack_ms, "engine_phases": phases},
             hot_path_rows(items, KERNEL_BATCHES[1]))
 
 
@@ -1169,11 +1252,14 @@ def phase_hashing(dev, rng, info, executed):
     check(h.served["host"] - host0 == n_over, "oversize rows not hashed "
           "on the host")
     times = []
+    before = tracing.span_totals()
     for _ in range(HASH_CALLS):
         t = time.perf_counter()
         out = h.hash_batch(msgs)
         times.append((time.perf_counter() - t) * 1e3)
         check(out == want, "a timed hash_batch call differs from hashlib")
+    phases = engine_phases(before, tracing.span_totals(), HASH_CALLS,
+                           "hash", "hashing")
     launches = sk.sha256_kernel.launches
     check(launches > 0, "the hashing main path launched no K3 kernel")
     host = []
@@ -1191,6 +1277,7 @@ def phase_hashing(dev, rng, info, executed):
            "p90_ms": np.percentile(times, 90),
            "hashlib_p50_ms": np.percentile(host, 50),
            "hashlib_p90_ms": np.percentile(host, 90), "oversize": n_over,
+           "engine_phases": phases,
            "launches": launches, "rows_compared": sum(HASH_KERNEL_BATCHES),
            "max_abs_err": err, "by_batch": per_batch}
     print(f"[hashing] {HASH_MSGS} messages ({n_over} oversize, hashed on "
@@ -1485,6 +1572,156 @@ def phase_audit_cost(items, want):
     return res
 
 
+def _stalled_call(v, items, want, label, limit_s):
+    """Queue a spin of STALL_S on the card's current stream, then call
+    ``v.verify_batch(items)``: it must raise within ``limit_s`` of wall
+    time, while the spin still runs, every index charged once by a missed
+    deadline and a ``watchdog-timeout`` dump holding the open
+    ``verify.fetch`` span. Then, after the spin and the abandoned
+    fetches' late completions, no count has moved, and the next call
+    equals the oracle with every breaker closed. Returns the record."""
+    n_idx = len(v.devices or [v.device])
+    dumps0 = tracing.flight_recorder.stats()["dumps_total"]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(STALL_S * SLEEP_CYCLES_PER_S))
+    spin = torch.cuda.Event()
+    spin.record()
+    t = time.perf_counter()
+    try:
+        v.verify_batch(items)
+    except RuntimeError as e:
+        raised_s = time.perf_counter() - t
+        spinning = not spin.query()
+        err = e
+    else:
+        raise PhaseFailed(f"{label}: the call did not raise behind a "
+                          f"{STALL_S} s spin")
+    check(spinning, f"{label}: the spin had ended when the call raised "
+          f"({raised_s:.3f} s)")
+    check(raised_s <= limit_s, f"{label}: raised after {raised_s:.3f} s, "
+          f"over {limit_s} s")
+    check(isinstance(err.__cause__, resilience.DeadlineExceeded),
+          f"{label}: the raise is not a missed deadline: {err!r}")
+    failures = {i: d["consecutive_failures"]
+                for i, d in v.health.snapshot()["devices"].items()}
+    check(v.deadline_misses == n_idx and
+          failures == {str(i): 1 for i in range(n_idx)},
+          f"{label}: {v.deadline_misses} deadline misses, failures "
+          f"{failures}, not one an index")
+    new_dumps = tracing.flight_recorder.dumps()[
+        -(tracing.flight_recorder.stats()["dumps_total"] - dumps0):]
+    reasons = [d["reason"] for d in new_dumps]
+    check(reasons == [f"watchdog-timeout:device{i}" for i in range(n_idx)],
+          f"{label}: dumps {reasons}")
+    open_names = [r["name"] for r in new_dumps[0]["open_spans"]]
+    check("span.verify.fetch" in open_names and
+          "span.verify.fetch.device" in open_names,
+          f"{label}: the dump's open spans are {open_names}")
+    counts = (dict(v.served), v.deadline_misses, v.retries,
+              v.audit_mismatches, len(v.audit_verdicts),
+              pipeline_timeline.totals())
+    torch.cuda.synchronize()
+    spin_end_s = time.perf_counter() - t
+    time.sleep(0.5)  # the abandoned fetches finish meanwhile
+    check(counts == (dict(v.served), v.deadline_misses, v.retries,
+                     v.audit_mismatches, len(v.audit_verdicts),
+                     pipeline_timeline.totals()),
+          f"{label}: a late completion moved a count")
+    time.sleep(max(v.health.breaker(i).seconds_until_retry()
+                   for i in range(n_idx)))
+    got = v.verify_batch(items)
+    torch.cuda.synchronize()
+    check(np.array_equal(got, want), f"{label}: the call after the stall "
+          "differs from the oracle")
+    states = {i: (d["state"], d["consecutive_failures"])
+              for i, d in v.health.snapshot()["devices"].items()}
+    check(all(st == (resilience.CLOSED, 0) for st in states.values()),
+          f"{label}: breakers not closed after the stall: {states}")
+    print(f"[deadline] {label}: raised after {raised_s:.3f} s (limit "
+          f"{limit_s} s) with the {STALL_S} s spin still running "
+          f"(it ended {spin_end_s:.3f} s into the call); {n_idx} deadline "
+          f"misses, each index charged once; dumps {reasons}; after the "
+          f"spin no count moved, and the next call equals the oracle with "
+          f"every breaker closed")
+    return {"raised_s": raised_s, "limit_s": limit_s,
+            "spin_end_s": spin_end_s, "deadline_misses": v.deadline_misses,
+            "dumps": reasons}
+
+
+def phase_deadline(dev, items, want):
+    """The resolve's deadline on the card, cache off, deadline
+    DEADLINE_PHASE_MS: a one-card verifier and one over the card named
+    SPLIT times, each called behind a spin (``_stalled_call``). The split's
+    indices share one stream, so the moved part waits behind the same
+    spin: each index misses in turn, then the call raises. Returns the
+    records and K1's launches over the phase."""
+    signer_table_cache.configure(enabled=False)
+    deadline0 = batch_engine.DEADLINE_MS
+    vk.verify_kernel.launches = 0
+    out = {}
+    try:
+        batch_engine.configure_dispatch(deadline_ms=DEADLINE_PHASE_MS)
+        out["one_card"] = _stalled_call(
+            BatchVerifier(device=dev, bucket_sizes=DEFAULT_BUCKET_SIZES),
+            items, want, "one card", RAISE_ONE_S)
+        out["split"] = _stalled_call(
+            BatchVerifier(devices=[dev] * SPLIT,
+                          bucket_sizes=DEFAULT_BUCKET_SIZES),
+            items, want, f"card x {SPLIT}",
+            SPLIT * DEADLINE_PHASE_MS / 1000 + RAISE_SLACK_S)
+    finally:
+        batch_engine.configure_dispatch(deadline_ms=deadline0)
+    out["launches"] = vk.verify_kernel.launches
+    return out
+
+
+def phase_probe():
+    """The device probe on the card: True from a fresh state; under a
+    probe hang False within PROBE_ANSWER_S, charged to the probe's
+    breaker, and a non-blocking ask answers at once and caches nothing;
+    after ``faults.clear()`` and the backoff, True again."""
+    batch_engine._reset_dispatch_state_for_testing()
+    t = time.perf_counter()
+    check(batch_engine.device_available(), "the probe found no card")
+    probe_s = time.perf_counter() - t
+    batch_engine._reset_dispatch_state_for_testing()
+    faults.set_fault(faults.PROBE, "hang", PROBE_HANG_S)
+    try:
+        t = time.perf_counter()
+        hung = batch_engine.device_available(timeout_s=PROBE_TIMEOUT_S)
+        hung_s = time.perf_counter() - t
+        check(not hung and hung_s <= PROBE_ANSWER_S, f"probe hang: "
+              f"answered {hung} after {hung_s:.3f} s")
+        check(batch_engine._device_state == "dead" and
+              batch_engine._probe_breaker.snapshot()[
+                  "consecutive_failures"] == 1,
+              "probe hang: not accounted dead and charged")
+        t = time.perf_counter()
+        pending = batch_engine.device_available(timeout_s=PROBE_TIMEOUT_S,
+                                                block=False)
+        pending_s = time.perf_counter() - t
+        check(not pending and pending_s < PROBE_TIMEOUT_S and
+              batch_engine._device_state == "dead",
+              "probe hang: a non-blocking ask waited or cached a verdict")
+    finally:
+        faults.clear()
+    time.sleep(batch_engine._probe_breaker.seconds_until_retry())
+    t = time.perf_counter()
+    healed = batch_engine.device_available()
+    healed_s = time.perf_counter() - t
+    check(healed and batch_engine._device_state == "cuda",
+          "the probe did not heal after the fault cleared")
+    res = {"probe_s": probe_s, "hung_answer_s": hung_s,
+           "pending_answer_s": pending_s, "healed_s": healed_s}
+    print(f"[probe] device_available() True in {probe_s:.3f} s; under a "
+          f"{PROBE_HANG_S} s probe hang False in {hung_s:.3f} s (limit "
+          f"{PROBE_ANSWER_S} s, timeout {PROBE_TIMEOUT_S} s), accounted "
+          f"dead; a non-blocking ask False in {pending_s * 1e3:.2f} ms, "
+          f"nothing cached; after the fault cleared True again in "
+          f"{healed_s:.3f} s (it waits out the hung attempt)")
+    return res
+
+
 def phase_faults(v, items, want):
     """The reference's device-domain scenarios on the SPLIT-index
     verifier, cache off: fail-device 1, probation healing, corrupt-device
@@ -1620,10 +1857,10 @@ def main() -> int:
     vk.verify_kernel.launches = 0
     vk.verify_kernel_hot.launches = 0
     hot_k1_ops = {}
-    hot_txset, txset_rows = phase_hot_txset(dev, txset_items, txset_want,
+    hot_txset, txset_rows = phase_hot_txset(txset_items, txset_want,
                                             hot_k1_ops)
     hot_catchup, catchup_rows = phase_hot_catchup(
-        dev, rng, catchup_items, catchup_got, catchup_bad, hot_k1_ops)
+        rng, catchup_items, catchup_got, catchup_bad, hot_k1_ops)
     hot_launches = vk.verify_kernel_hot.launches
     hot_k1_launches = vk.verify_kernel.launches
     check(hot_launches > 0, "the hot main path launched no K2 kernel")
@@ -1653,6 +1890,8 @@ def main() -> int:
     del k1_ops
     split, split_v = phase_split(dev, txset_items, txset_want)
     audit_cost = phase_audit_cost(txset_items, txset_want)
+    deadline = phase_deadline(dev, txset_items, txset_want)
+    probe = phase_probe()
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
@@ -1664,6 +1903,7 @@ def main() -> int:
                      max(err, err6, k1_hot_err), per_batch,
                      KERNEL_BATCHES[0], info["smi"],
                      launches_hot_paths=hot_k1_launches,
+                     launches_deadline_phase=deadline["launches"],
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -1697,7 +1937,10 @@ def main() -> int:
         "hashing": {k: hashing[k] for k in (
             "p50_ms", "p90_ms", "hashlib_p50_ms", "hashlib_p90_ms",
             "oversize")},
+        "txset_engine_phases": txset["engine_phases"],
+        "txset_pipeline": txset["pipeline"],
         "split_txset": split, "audit_cost": audit_cost,
+        "deadline": deadline, "probe": probe,
         "fault_domains": fault_domains, "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,8 @@ import numpy as np
 
 from stellar_tpu_torch.ops import sha256 as sk
 from stellar_tpu_torch.parallel import mesh
-from stellar_tpu_torch.parallel.batch_engine import BatchEngine, Workload
+from stellar_tpu_torch.parallel.batch_engine import (
+    BatchEngine, Workload, register_default_engine)
 from stellar_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Sha256Workload", "BatchHasher", "default_hasher", "hash_many",
@@ -54,6 +55,8 @@ class Sha256Workload(Workload):
     """Host packing in ``encode``, K3 on the device, ``hashlib`` for the
     rows that do not fit."""
 
+    metrics_ns = "crypto.hash"
+    span_ns = "hash"
     libraries = ("sha256",)
 
     def encode(self, items: Sequence[bytes]) -> Tuple[np.ndarray, tuple]:
@@ -102,7 +105,9 @@ class BatchHasher(BatchEngine):
 
     def hash_batch(self, msgs: Sequence[bytes]) -> List[bytes]:
         """The digests of ``msgs``, in order, equal to
-        ``hashlib.sha256``'s."""
+        ``hashlib.sha256``'s. The call is the root span
+        ``hash.blocking`` (``batch_engine.phase_attribution(...,
+        span_ns="hash")``)."""
         return [sk.digest_words_to_bytes(row)
                 for row in self.compute_batch(msgs)]
 
@@ -126,6 +131,8 @@ def default_hasher(device=None) -> BatchHasher:
     with _defaults_lock:
         if key not in _defaults:
             _defaults[key] = BatchHasher(devices=list(key))
+            register_default_engine(f"hash:{','.join(key)}",
+                                    _defaults[key])
         return _defaults[key]
 
 

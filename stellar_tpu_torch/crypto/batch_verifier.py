@@ -26,6 +26,11 @@ device-served part (the audit) is verified on the host by
 libsodium-exact host oracle. :func:`default_verifier`
 spans every visible card (:func:`stellar_tpu_torch.parallel.mesh.
 auto_devices`), and one card unsplit when there is one.
+
+The engine's dispatch surface is re-exported here, as from the reference
+module: :func:`configure_dispatch`, :func:`device_available`,
+:func:`start_device_probe`, :func:`dispatch_health` and
+:func:`dispatch_attribution` over the ``verify.*`` spans.
 """
 
 from __future__ import annotations
@@ -39,12 +44,19 @@ from stellar_tpu_torch.crypto import ed25519_ref as ref
 from stellar_tpu_torch.crypto import native_prep, native_verify
 from stellar_tpu_torch.ops import verify as vk
 from stellar_tpu_torch.parallel import mesh, signer_tables
-from stellar_tpu_torch.parallel.batch_engine import (
-    DEFAULT_BUCKET_SIZES, BatchEngine, Workload)
+from stellar_tpu_torch.parallel.batch_engine import (  # noqa: F401
+    DEFAULT_BUCKET_SIZES, RESOLVE_PHASES, RESOLVE_ROOT, BatchEngine,
+    Workload, configure_dispatch, device_available, dispatch_attribution,
+    dispatch_health, note_trace_event, register_default_engine,
+    start_device_probe, trace_ranges)
+from stellar_tpu_torch.utils import tracing
 from stellar_tpu_torch.utils.device import resolve_device
 
 __all__ = ["BatchVerifier", "Ed25519Workload", "Ed25519HotWorkload",
-           "default_verifier"]
+           "default_verifier", "configure_dispatch", "device_available",
+           "start_device_probe", "dispatch_health", "dispatch_attribution",
+           "note_trace_event", "trace_ranges", "RESOLVE_PHASES",
+           "RESOLVE_ROOT"]
 
 # libsodium's blocklist, as a (14, 32) uint8 matrix for a vectorized compare.
 _SMALL_ORDER = np.stack([np.frombuffer(e, dtype=np.uint8)
@@ -77,6 +89,8 @@ class Ed25519Workload(Workload):
     kernel on the device; ``finalize`` ANDs the gate into the device bits,
     so a gate-rejected row is False whatever the device said."""
 
+    metrics_ns = "crypto.verify"
+    span_ns = "verify"
     libraries = ("verify_cold",)
 
     def encode(self, items: Sequence[tuple]) -> Tuple[np.ndarray, tuple]:
@@ -190,7 +204,7 @@ class BatchVerifier(BatchEngine):
         self._hot = Ed25519HotWorkload()
         self.served["hot"] = 0
 
-    def submit(self, items: Sequence[tuple],
+    def submit(self, items: Sequence[tuple], trace_ids=None,
                variant: Optional[Workload] = None
                ) -> Callable[[], np.ndarray]:
         """Partitioning submit: rows whose signer has a cached table ride
@@ -200,31 +214,40 @@ class BatchVerifier(BatchEngine):
         the decompression K1 carries. The split depends on the cache alone
         (content-keyed: two replicas fed the same traffic split alike) and
         never changes a verdict. With the cache off every row rides
-        cold."""
+        cold. The partition (lookups and first-sight table builds) is host
+        prep: it runs under the ``verify.prep`` span, so a blocking call's
+        attribution covers it. ``trace_ids`` follow their rows into both
+        submits."""
         cache = signer_tables.signer_table_cache
         if variant is not None or not cache.enabled or not len(items):
-            return super().submit(items, variant=variant)
+            return super().submit(items, trace_ids=trace_ids,
+                                  variant=variant)
         hot_idx, hot_items = [], []
         cold_idx, cold_items = [], []
-        for i, it in enumerate(items):
-            pk = it[0]
-            tab = cache.lookup(pk) if len(pk) == 32 else None
-            if tab is not None:
-                hot_idx.append(i)
-                hot_items.append((it, tab))
-                continue
-            cold_idx.append(i)
-            cold_items.append(it)
-            if len(pk) == 32:
-                built = signer_tables.build_signer_table(pk)
-                if built is not None:
-                    cache.install(pk, built)
+        with tracing.span(f"{self._span_ns}.prep"):
+            for i, it in enumerate(items):
+                pk = it[0]
+                tab = cache.lookup(pk) if len(pk) == 32 else None
+                if tab is not None:
+                    hot_idx.append(i)
+                    hot_items.append((it, tab))
+                    continue
+                cold_idx.append(i)
+                cold_items.append(it)
+                if len(pk) == 32:
+                    built = signer_tables.build_signer_table(pk)
+                    if built is not None:
+                        cache.install(pk, built)
+            hot_ix = np.asarray(hot_idx, dtype=np.intp)
+            cold_ix = np.asarray(cold_idx, dtype=np.intp)
         if not hot_items:
-            return super().submit(items)
-        resolve_hot = super().submit(hot_items, variant=self._hot)
-        resolve_cold = super().submit(cold_items) if cold_items else None
-        hot_ix = np.asarray(hot_idx, dtype=np.intp)
-        cold_ix = np.asarray(cold_idx, dtype=np.intp)
+            return super().submit(items, trace_ids=trace_ids)
+        hot_tr = [trace_ids[i] for i in hot_idx] if trace_ids else None
+        cold_tr = [trace_ids[i] for i in cold_idx] if trace_ids else None
+        resolve_hot = super().submit(hot_items, trace_ids=hot_tr,
+                                     variant=self._hot)
+        resolve_cold = super().submit(cold_items, trace_ids=cold_tr) \
+            if cold_items else None
         n = len(items)
 
         def resolve() -> np.ndarray:
@@ -236,10 +259,12 @@ class BatchVerifier(BatchEngine):
 
         return resolve
 
-    def verify_batch(self, items: Sequence[tuple]) -> np.ndarray:
+    def verify_batch(self, items: Sequence[tuple],
+                     trace_ids=None) -> np.ndarray:
         """items: (pk, msg, sig) bytes triples -> (n,) bool, libsodium's
-        decision per item, through the partition."""
-        return self.compute_batch(items)
+        decision per item, through the partition, under the root span
+        ``verify.blocking``."""
+        return self.compute_batch(items, trace_ids=trace_ids)
 
     def verify_sig(self, pk: bytes, msg: bytes, sig: bytes) -> bool:
         """One verification; the signature of a node's verify backend
@@ -276,4 +301,6 @@ def default_verifier(device=None) -> BatchVerifier:
         if key not in _defaults:
             _defaults[key] = BatchVerifier(
                 devices=list(key), bucket_sizes=DEFAULT_BUCKET_SIZES)
+            register_default_engine(f"verify:{','.join(key)}",
+                                    _defaults[key])
         return _defaults[key]

@@ -20,10 +20,15 @@ Lifecycle of one device:
 :meth:`DeviceHealth.quarantine` is the hard open the result-integrity
 audit uses: a device caught returning wrong bits gets no further chances.
 
-Every transition is kept in a bounded history ring (``seq``-ordered).
-The reference also mirrors its events into a metrics registry; the port
-has none, and the history, the breakers' snapshots and the audit tallies
-already hold every event once.
+Every transition is kept in a bounded history ring (``seq``-ordered)
+and mirrored, as in the reference, into the process registry
+(:mod:`stellar_tpu_torch.utils.metrics`): ``crypto.verify.device.<i>.
+failures``, ``.quarantines``, ``.audit.ok`` / ``.audit.mismatch``, the
+gauge ``.breaker.state`` and ``crypto.verify.device.breaker.transitions``.
+The names carry the device index, so engines over different lists add
+into the same counters; each engine's own ``health`` keeps them apart.
+The engine dumps the flight recorder on a quarantine onset and an audit
+conviction (``stellar_tpu_torch.parallel.batch_engine``).
 
 Determinism: this module reads no clock and no RNG itself; the breakers
 it owns carry their own monotonic clocks for backoff pacing, which
@@ -37,6 +42,7 @@ from collections import deque
 from typing import Dict, List, Optional
 
 from stellar_tpu_torch.utils import resilience
+from stellar_tpu_torch.utils.metrics import registry as _metrics
 
 __all__ = ["DeviceHealth", "DEFAULT_FAILURE_THRESHOLD",
            "DEFAULT_BACKOFF_MIN_S", "DEFAULT_BACKOFF_MAX_S"]
@@ -116,6 +122,7 @@ class DeviceHealth:
     def record_failure(self, idx: int) -> bool:
         """Account one failure to device ``idx``. Returns True when THIS
         failure opened the device's breaker (quarantine onset)."""
+        _metrics.counter(f"crypto.verify.device.{idx}.failures").inc()
         return self.breaker(idx).record_failure()
 
     def record_success(self, idx: int) -> None:
@@ -125,6 +132,7 @@ class DeviceHealth:
         """Hard quarantine: force the breaker open at once (an audit
         mismatch: wrong bits, not a failure streak)."""
         self._note_event(idx, "quarantine", reason)
+        _metrics.counter(f"crypto.verify.device.{idx}.quarantines").inc()
         self.breaker(idx).trip()
 
     def note_audit(self, idx: Optional[int], ok: bool,
@@ -139,6 +147,8 @@ class DeviceHealth:
         if not ok:
             self._note_event(-1 if idx is None else idx,
                              "audit-mismatch", f"sampled={sampled}")
+        _metrics.counter(f"crypto.verify.device.{key}.audit."
+                         + ("ok" if ok else "mismatch")).inc()
 
     def assign_parts(self, n_devices: int, n_parts: int,
                      exclude=()) -> List[Optional[int]]:
@@ -190,6 +200,8 @@ class DeviceHealth:
             self._seq += 1
             self._history.append({"seq": self._seq, "device": idx,
                                   "from": old, "to": new})
+        _metrics.gauge(f"crypto.verify.device.{idx}.breaker.state").set(new)
+        _metrics.counter("crypto.verify.device.breaker.transitions").inc()
 
     def _note_event(self, idx: int, event: str, reason: str) -> None:
         with self._lock:

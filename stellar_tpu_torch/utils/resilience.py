@@ -1,14 +1,22 @@
-"""Circuit breaker for the port's dispatch fault domains — the port's
-copy of ``stellar_tpu/utils/resilience.py``'s :class:`CircuitBreaker`.
+"""Circuit breaker and deadlines for the port's dispatch fault domains —
+the port's copy of ``stellar_tpu/utils/resilience.py``.
 
-closed -> open on a consecutive-failure threshold -> half-open re-probe
-after an exponential backoff window, with jitter so a fleet of nodes does
-not re-probe in lockstep; a half-open probe grant expires after the
-current backoff interval. Each engine keeps one a device index
-(:mod:`stellar_tpu_torch.parallel.device_health`).
+* :class:`CircuitBreaker`: closed -> open on a consecutive-failure
+  threshold -> half-open re-probe after an exponential backoff window,
+  with jitter so a fleet of nodes does not re-probe in lockstep; a
+  half-open probe grant expires after the current backoff interval. Each
+  engine keeps one a device index
+  (:mod:`stellar_tpu_torch.parallel.device_health`).
+* :class:`Deadline` and :func:`call_with_deadline`: time budgets for
+  calls whose failure is a hang, not an exception (a wait on a card
+  that never finishes its stream).
+* :class:`WatchdogPool`: the daemon workers behind
+  :func:`call_with_deadline`. A guarded call is a queue hand-off to an
+  idle worker; a worker parked in a hung call is simply missing from the
+  idle set, and the next call gets a fresh one.
 
-Not in this slice: the reference's ``Deadline``, ``WatchdogPool`` and
-``call_with_deadline`` (the deadline-guarded resolve; ROADMAP.md).
+``Overloaded`` belongs to the verify service, which the port does not
+have yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,13 +24,147 @@ from __future__ import annotations
 import random
 import threading
 import time
+from collections import deque
 from typing import Callable, Optional
 
-__all__ = ["CLOSED", "OPEN", "HALF_OPEN", "CircuitBreaker"]
+from stellar_tpu_torch.utils import tracing
+
+__all__ = ["CLOSED", "OPEN", "HALF_OPEN", "CircuitBreaker", "Deadline",
+           "DeadlineExceeded", "WatchdogPool", "call_with_deadline",
+           "watchdog_stats"]
 
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half-open"
+
+
+class DeadlineExceeded(Exception):
+    """A guarded call did not finish within its budget."""
+
+
+class Deadline:
+    """A monotonic time budget threaded through a multi-step operation,
+    so each step races against what is left, not a fresh allowance."""
+
+    def __init__(self, budget_s: float, clock=time.monotonic):
+        self._clock = clock
+        self._t0 = clock()
+        self.budget_s = float(budget_s)
+
+    @classmethod
+    def from_ms(cls, budget_ms: float, clock=time.monotonic) -> "Deadline":
+        return cls(budget_ms / 1000.0, clock=clock)
+
+    def elapsed(self) -> float:
+        return self._clock() - self._t0
+
+    def remaining(self) -> float:
+        return self.budget_s - self.elapsed()
+
+    def expired(self) -> bool:
+        return self.remaining() <= 0.0
+
+    def check(self, what: str = "operation") -> None:
+        if self.expired():
+            raise DeadlineExceeded(
+                f"{what}: {self.budget_s:.3f}s budget exhausted")
+
+
+class WatchdogPool:
+    """Daemon workers for deadline-guarded calls.
+
+    * A submitted job is picked up at once: ``submit`` starts a worker
+      whenever the queue outnumbers the idle workers, so a guarded call
+      never waits behind another caller's hang.
+    * A worker whose job hangs is absent from the idle set; if the call
+      ever returns, the worker rejoins the pool.
+    * At most ``max_idle`` workers linger between bursts.
+
+    Each job runs under the submitter's span context
+    (:class:`stellar_tpu_torch.utils.tracing.span_context`), so a span
+    opened in it links to the span that waits on it. All shared state
+    changes under the pool's condition variable."""
+
+    def __init__(self, name: str = "watchdog", max_idle: int = 4):
+        self.name = name
+        self._max_idle = max_idle
+        self._cv = threading.Condition()
+        self._jobs: deque = deque()
+        self._idle = 0
+        self._workers = 0
+        self._spawned_total = 0
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                if not self._jobs:
+                    if self._idle >= self._max_idle:
+                        self._workers -= 1
+                        return
+                    self._idle += 1
+                    while not self._jobs:
+                        self._cv.wait()
+                    self._idle -= 1
+                job = self._jobs.popleft()
+            try:
+                with tracing.span_context(job["ctx"]):
+                    job["box"]["out"] = job["fn"]()
+            except BaseException as e:  # raised again on the caller
+                job["box"]["err"] = e
+            finally:
+                job["done"].set()
+
+    def submit(self, fn: Callable) -> dict:
+        """Queue ``fn`` for a worker; returns the job (its ``done``
+        event and ``box`` result slot). Never blocks."""
+        job = {"fn": fn, "box": {}, "done": threading.Event(),
+               "ctx": tracing.current_context()}
+        with self._cv:
+            self._jobs.append(job)
+            if self._idle >= len(self._jobs):
+                self._cv.notify()
+            else:
+                self._workers += 1
+                self._spawned_total += 1
+                threading.Thread(target=self._loop, daemon=True,
+                                 name=f"{self.name}-worker").start()
+        return job
+
+    def stats(self) -> dict:
+        with self._cv:
+            return {"workers": self._workers, "idle": self._idle,
+                    "queued": len(self._jobs),
+                    "spawned_total": self._spawned_total}
+
+
+# the process-wide pool behind call_with_deadline
+_pool = WatchdogPool(name="resilience-watchdog")
+
+
+def watchdog_stats() -> dict:
+    """Worker, idle and spawn counts of the shared pool."""
+    return _pool.stats()
+
+
+def call_with_deadline(fn: Callable, budget_s: Optional[float],
+                       name: str = "guarded-call"):
+    """Run ``fn()`` on a pool worker; raise :class:`DeadlineExceeded` if
+    it does not finish within ``budget_s`` (None: no guard, a direct
+    call). A worker cannot be killed: on a timeout the job is abandoned
+    and its worker stays parked in whatever hung, so the caller treats
+    the resource as suspect (the breaker's job). An exception of ``fn``
+    is raised again as it is."""
+    if budget_s is None:
+        return fn()
+    if budget_s <= 0:
+        raise DeadlineExceeded(f"{name}: no budget left")
+    job = _pool.submit(fn)
+    if not job["done"].wait(budget_s):
+        raise DeadlineExceeded(f"{name} exceeded {budget_s:.3f}s budget")
+    box = job["box"]
+    if "err" in box:
+        raise box["err"]
+    return box.get("out")
 
 
 class CircuitBreaker:

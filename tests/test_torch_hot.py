@@ -10,7 +10,11 @@
   against the plain version;
 * the port's signer-table cache and the partitioning ``BatchVerifier`` on
   the CPU, held against the oracle, the all-cold verdicts and the JAX
-  ``BatchVerifier`` with its cache on.
+  ``BatchVerifier`` with its cache on;
+* the same JAX ``BatchVerifier`` (one B = 16 compile for the module)
+  against the port's verifier split over two CPU indices with a ``hang``
+  at the fetch: the part whose deadline passed moves, the verdicts do
+  not change.
 
 Integer arithmetic throughout: tolerance zero."""
 
@@ -19,6 +23,8 @@ import hashlib
 import importlib.util
 import os
 import subprocess
+import threading
+import time
 
 import numpy as np
 import jax
@@ -40,7 +46,10 @@ from stellar_tpu_torch.crypto.batch_verifier import (
     BatchVerifier, Ed25519HotWorkload, Ed25519Workload)
 from stellar_tpu_torch.ops import edwards as ted
 from stellar_tpu_torch.ops import verify as tvk
+from stellar_tpu_torch.parallel import batch_engine as tbe
 from stellar_tpu_torch.parallel import signer_tables as st
+from stellar_tpu_torch.utils import faults
+from stellar_tpu_torch.utils.metrics import registry
 
 B = 16
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -642,7 +651,14 @@ def test_hot_padding_row_is_true():
     assert Ed25519HotWorkload().pad_rows()[0].shape == (1, 128, 3, 20)
 
 
-def test_slice_verdicts_equal_oracle_cold_and_jax(fresh_cache):
+@pytest.fixture(scope="module")
+def jax_verifier():
+    """The JAX BatchVerifier at bucket 16, shared by this module's tests
+    so that its kernels compile once."""
+    return jbv.BatchVerifier(bucket_sizes=(16,))
+
+
+def test_slice_verdicts_equal_oracle_cold_and_jax(fresh_cache, jax_verifier):
     """The slice as a whole: two passes of the edge corpus plus fresh
     signatures through the port's partitioning verifier (the first pass
     installs tables, the second is the hot steady state) equal the oracle,
@@ -657,7 +673,7 @@ def test_slice_verdicts_equal_oracle_cold_and_jax(fresh_cache):
     cold = BatchVerifier(device="cpu", bucket_sizes=(16,)).verify_batch(items)
     fresh_cache.configure(enabled=True)
     v = BatchVerifier(device="cpu", bucket_sizes=(16,))
-    jv = jbv.BatchVerifier(bucket_sizes=(16,))
+    jv = jax_verifier
     for _ in range(2):
         got = v.verify_batch(items)
         np.testing.assert_array_equal(got, oracle)
@@ -668,6 +684,51 @@ def test_slice_verdicts_equal_oracle_cold_and_jax(fresh_cache):
     assert v.served["hot"] == snap["hits"]
     assert jst.signer_table_cache.snapshot()["hits"] == snap["hits"]
     assert oracle[0] and oracle[-3:].all() and not oracle.all()
+
+
+@pytest.mark.chaos
+def test_hang_at_fetch_moves_the_part_and_equals_jax(fresh_cache,
+                                                     jax_verifier):
+    """The edge corpus at B = 16 on the port's verifier over two CPU
+    indices, cache off, with a ``hang`` armed at the fetch until it first
+    fires and a 200 ms deadline: index 0's first part misses the deadline,
+    index 0 is charged and the part moves to index 1; every verdict
+    equals the oracle's and the JAX BatchVerifier's."""
+    rng = np.random.default_rng(81)
+    items = vectors.edge_corpus(rng) + vectors.valid_items(rng, 3)
+    oracle = np.array([ref.verify(*it) for it in items])
+    fresh_cache.configure(enabled=False)
+    v = BatchVerifier(devices=["cpu"] * 2, bucket_sizes=(16,))
+    deadline = tbe.DEADLINE_MS
+    charged = [registry.counter(f"crypto.verify.device.{i}.failures")
+               for i in (0, 1)]
+    charged0 = [c.count for c in charged]
+    faults.set_fault(faults.RESOLVE, "hang", 0.6)
+
+    def clear_when_fired():
+        while not faults.counters().get(faults.RESOLVE,
+                                        {"fired": 1})["fired"]:
+            time.sleep(0.002)
+        faults.clear()
+
+    try:
+        tbe.configure_dispatch(deadline_ms=200)
+        resolve = v.submit(items)
+        helper = threading.Thread(target=clear_when_fired, daemon=True)
+        helper.start()
+        got = resolve()
+        helper.join(5)
+    finally:
+        faults.clear()
+        tbe.configure_dispatch(deadline_ms=deadline)
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(jax_verifier.verify_batch(items), got)
+    assert v.deadline_misses == 1
+    assert [c.count - c0 for c, c0 in zip(charged, charged0)] == [1, 0]
+    # index 0 served its two later parts (closing its streak again); its
+    # first moved to index 1
+    assert v.device_served == {0: 16, 1: len(items) - 16}
+    assert v.served["device"] == len(items)
 
 
 # ---------------- the constructor's default ladder ----------------

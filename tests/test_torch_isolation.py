@@ -32,6 +32,10 @@ def _port_sources():
 def test_forbidden_imports_absent():
     files = _port_sources()
     assert len(files) > 10 and all(os.path.exists(f) for f in files)
+    for module in ("metrics", "tracing", "timeline", "resilience",
+                   "faults"):
+        assert os.path.join(ROOT, "stellar_tpu_torch", "utils",
+                            f"{module}.py") in files
     for path in files:
         with open(path) as f:
             hits = _FORBIDDEN.findall(f.read())
@@ -42,8 +46,9 @@ def test_import_and_verify_with_jax_blocked():
     """A fresh interpreter in which importing jax or stellar_tpu fails
     imports the port, verifies three items on the CPU twice (the second
     time through the hot-signer path), runs K5 and K4 on two rows, verifies
-    the three items again over a verifier split across two indices, and
-    hashes forty messages."""
+    the three items again over a verifier split across two indices,
+    hashes forty messages, attributes a traced blocking call, and raises
+    from a deadline-guarded call under a ``hang`` fault."""
     code = "\n".join([
         "import sys, hashlib",
         "sys.modules['jax'] = None",
@@ -78,6 +83,24 @@ def test_import_and_verify_with_jax_blocked():
         "msgs = [bytes([i]) * (13 * i) for i in range(40)]",
         "assert hash_many(msgs, device='cpu') == "
         "[hashlib.sha256(m).digest() for m in msgs]",
+        "from stellar_tpu_torch.parallel import batch_engine as be",
+        "from stellar_tpu_torch.utils import faults, resilience, tracing",
+        "before = tracing.span_totals()",
+        "assert v2.verify_batch(items).tolist() == [True, False, True]",
+        "att = be.dispatch_attribution(before, tracing.span_totals())",
+        "assert att['coverage'] >= 0.95, att",
+        "be.configure_dispatch(deadline_ms=100)",
+        "faults.set_fault(faults.RESOLVE, 'hang', 0.5)",
+        "v3 = BatchVerifier(device='cpu', bucket_sizes=(4,))",
+        "try:",
+        "    v3.verify_batch(items)",
+        "    raise SystemExit('the hung fetch did not raise')",
+        "except RuntimeError as e:",
+        "    assert isinstance(e.__cause__, resilience.DeadlineExceeded)",
+        "faults.clear()",
+        "assert v3.deadline_misses == 1",
+        "assert 'watchdog-timeout:device0' in "
+        "tracing.flight_recorder.stats()['dump_reasons']",
         "assert not any(m == 'jax' or m.startswith('jax.') or m == "
         "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
         "sys.modules if sys.modules[m] is not None)",
