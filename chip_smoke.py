@@ -34,6 +34,15 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    (``pipeline_timeline.recent``) of busy_frac, overlap_frac and
    reconciliation with the commonest largest bubble class: the host's
    view of device occupancy, launch to delivery, not a profiler trace;
+   and the transfer ledger's deltas a call (bytes each way, round trips,
+   resident hits and bytes, unfingerprinted uploads), equal to the
+   engine's own tallies and to the bytes of the operands and results that
+   the kernel launches were handed and returned (a tap on the workloads);
+   the resident cache is off, as by default, in every main-path phase:
+   each call ships the four operands, 262,144 B, and a repeat counts them
+   redundant. Phases 5, 7, 8, 10 and 13 print and check the same deltas
+   over their timed calls (phase 7: the table operand one unfingerprinted
+   upload a call);
 5. main path, cold catchup — the cache off; 16,384 signatures (2,048
    signers x 8 messages, 2% corrupted) in one call, checked against the
    oracle on a seeded sample and on every corrupted row; one untimed call
@@ -96,7 +105,18 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    host oracle's backend (native libcrypto or pure Python), and its cost
    part by part (policy gate, native batch at its own thread count and
    on one thread) for a TxSet's and a catchup call's audit;
-15. the deadline on the card — the cold TxSet at a 200 ms deadline on a
+15. the transfer ledger's and the resident cache's cost — the default
+   verifier in four modes in turns, p50 and p90 of each: the cold TxSet
+   with the resident cache on and its items repeated (the only mode here
+   whose traffic it serves: 0 B copied, 4 hits), with the cache on and
+   fresh content every call, with the cache off (the default), with it
+   off and the ledger counting bytes only (no fingerprint), and a hot
+   TxSet repeat with the cache off, each mode's ledger deltas checked; the fingerprint alone a call and an
+   operand (and of the hasher's 1 MiB operand), the four copies a hit
+   saves and the hot table operand's copy (CUDA events, GB/s); one cold
+   call's ``to_chrome_trace()`` written to ``build/`` and lines of
+   ``to_prometheus()``;
+16. the deadline on the card — the cold TxSet at a 200 ms deadline on a
    one-card verifier of its own, behind a 2.5 s ``torch.cuda._sleep``
    spin on the card's stream: the call raises within 1.0 s while the spin
    still runs, the card's breaker charged once, one deadline miss, a
@@ -105,12 +125,13 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    completion, and the next call equals the oracle with the breaker
    closed. Then the same on a verifier over the card named 4 times: the
    indices share the stream, so each misses in turn and the call raises
-   within 4 x 200 ms + 0.5 s, each index charged once;
-16. the probe on the card — ``device_available()`` True from a fresh
+   within 4 x 200 ms + 0.5 s, each index charged once; no count of the
+   transfer ledger moved by the late completions;
+17. the probe on the card — ``device_available()`` True from a fresh
    state; under a 2 s probe hang False within 0.6 s (timeout 0.3 s),
    accounted dead, and a non-blocking ask answers at once caching
    nothing; after ``faults.clear()`` and the backoff True again;
-17. fault domains, last — on the 4-index verifier: ``fail-device`` on
+18. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -121,10 +142,10 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 Each kernel's launch count is set to 0 just before its path runs and read
 just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
 7-8, K3 over phase 10's calls, K5 over phase 11's sweep calls, K4 over
-phase 12's calls, K1 and K2 again over phase 13, K1 over phase 15. After
+phase 12's calls, K1 and K2 again over phase 13, K1 over phase 16. After
 every main-path phase the dispatch must be clean: no device fault (no
 retry, every breaker closed and never opened), no audit mismatch, no
-conviction; only phases 15 and 17 expect otherwise. The engine has no host failover, so no
+conviction; only phases 16 and 18 expect otherwise. The engine has no host failover, so no
 row of a card is ever served by the host. Before the last line, one
 ``{"kernels": [...]}`` line holds every kernel's launches, times, bound
 and build; the last line is ``{"ok": true, "device": {...}}``. With no
@@ -159,13 +180,16 @@ try:
     from stellar_tpu_torch.ops import _build
     from stellar_tpu_torch.ops import sha256 as sk
     from stellar_tpu_torch.ops import verify as vk
-    from stellar_tpu_torch.parallel import batch_engine, mesh
+    from stellar_tpu_torch.parallel import batch_engine, mesh, residency
     from stellar_tpu_torch.parallel.batch_engine import DEFAULT_BUCKET_SIZES
     from stellar_tpu_torch.parallel.signer_tables import (
         TABLE_ENTRIES, build_signer_table, signer_table_cache)
     from stellar_tpu_torch.utils import faults, resilience, tracing
     from stellar_tpu_torch.utils.device import resolve_device
+    from stellar_tpu_torch.utils.metrics import registry
     from stellar_tpu_torch.utils.timeline import pipeline_timeline
+    from stellar_tpu_torch.utils.transfer_ledger import (
+        DEFAULT_FP_MAX_BYTES, transfer_ledger)
 except ImportError as e:  # run outside the repository
     _IMPORT_ERROR = e
 else:
@@ -207,6 +231,10 @@ HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES_PER_S = 2e9
 ROW_BYTES = 4 * 32 + 1  # A, R, s, h read once, one bool written
 HOT_ENTRY_BYTES = 3 * 20 * 2  # one int16 affine cached entry
+# the cold TxSet's operands at its 2,048 bucket (A, R, s, h) and the hot
+# TxSet's table operand, over the resident cache's 1 MiB cap
+TXSET_OPERAND_BYTES = 4 * KERNEL_BATCHES[0] * 32
+HOT_TABLE_BYTES = KERNEL_BATCHES[0] * 128 * HOT_ENTRY_BYTES
 # K3's bound counts the function's work, FIPS 180-4's operations on
 # 32-bit words a 64-byte block, a three-input add or logic operation as
 # one: a round is Sigma0 and Sigma1 (3 rotations and a three-way XOR
@@ -277,7 +305,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 17's per-device backoff: far longer than a TxSet call (tens of
+# phase 18's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -287,17 +315,34 @@ AUDIT_ROWS = (40, 320)
 # span they must cover on the cold and hot TxSet
 ATTRIBUTED_PHASES = ("prep", "bucket", "dispatch", "fetch", "audit")
 MIN_COVERAGE = 0.95
-# phase 15: the resolve deadline, ms, and the spin queued ahead of the
+# phase 16: the resolve deadline, ms, and the spin queued ahead of the
 # call, s; the one-card call must raise within RAISE_ONE_S and the split
 # one within SPLIT x the deadline plus RAISE_SLACK_S
 DEADLINE_PHASE_MS = 200
 STALL_S = 2.5
 RAISE_ONE_S = 1.0
 RAISE_SLACK_S = 0.5
-# phase 16: the probe's hang, s, its timeout and the answer's limit
+# phase 17: the probe's hang, s, its timeout and the answer's limit
 PROBE_HANG_S = 2.0
 PROBE_TIMEOUT_S = 0.3
 PROBE_ANSWER_S = 0.6
+# the transfer ledger's deltas printed a call, and checked against the
+# engines' own tallies
+TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
+                 "resident_bytes", "unfingerprinted_uploads",
+                 "unfingerprinted_bytes", "redundant_constant_bytes")
+# phase 15: turns of the four modes, calls a mode a turn; fingerprint and
+# copy repetitions
+TRANSFER_MODES = ("repeated", "fresh", "cache_off", "bytes_only",
+                  "hot_repeat")
+TRANSFER_TURNS = 4
+TRANSFER_CALLS = 10
+FINGERPRINT_REPS = 50
+COPY_REPS = 20
+# phase 15 writes one cold TxSet call's Chrome trace here (``build/`` is
+# ignored by git)
+CHROME_TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chrome_trace_cold_txset.json")
 
 
 class PhaseFailed(Exception):
@@ -743,6 +788,64 @@ def pipeline_view(resolves0, ns, label):
     return out
 
 
+def transfer_mark(engines):
+    """The transfer ledger's totals and ``engines``' own tallies (bytes
+    copied, bytes fetched, resident hits), before the calls that
+    :func:`transfer_view` reads; and a tap on the engines' workloads,
+    which sums the bytes of the operand tensors each kernel launch is
+    handed and of the result it returns: a count taken at the kernels,
+    apart from the ledger and the tallies. :func:`transfer_view` takes
+    the tap off."""
+    tap = {"in": 0, "out": 0}
+    plugins = list({id(p): p for e in engines
+                    for p in (e._plugin, getattr(e, "_hot", None))
+                    if p is not None}.values())
+    for p in plugins:
+        def kernel(*ops, _fn=p.kernel_fn()):
+            out = _fn(*ops)
+            tap["in"] += sum(o.nbytes for o in ops)
+            tap["out"] += out.nbytes
+            return out
+        p.kernel_fn = lambda _k=kernel: _k
+    return transfer_ledger.totals(), [
+        (e.shipped_bytes, e.fetched_bytes, e.resident_hits)
+        for e in engines], tap, plugins
+
+
+def transfer_view(mark, engines, calls, label, quiet=False):
+    """The ledger's deltas since ``mark``, a call over ``calls`` calls;
+    fails unless its bytes each way and resident hits equal the deltas of
+    ``engines``' own shape-derived tallies, and unless the bytes it
+    counts each way equal the tap's (every launch accepted: h2d plus
+    resident bytes are the operands the kernels were handed, d2h their
+    results). Returns the totals and the deltas a call."""
+    before, tallies, tap, plugins = mark
+    for p in plugins:
+        del p.kernel_fn
+    after = transfer_ledger.totals()
+    d = {k: after[k] - before[k] for k in TRANSFER_KEYS}
+    own = [sum(e.shipped_bytes for e in engines) - sum(t[0] for t in tallies),
+           sum(e.fetched_bytes for e in engines) - sum(t[1] for t in tallies),
+           sum(e.resident_hits for e in engines) - sum(t[2] for t in tallies)]
+    check([d["bytes_h2d"], d["bytes_d2h"], d["resident_hits"]] == own,
+          f"{label}: the transfer ledger's h2d, d2h and resident hits "
+          f"{[d['bytes_h2d'], d['bytes_d2h'], d['resident_hits']]} differ "
+          f"from the engines' own {own}")
+    check(d["bytes_h2d"] + d["resident_bytes"] == tap["in"] and
+          d["bytes_d2h"] == tap["out"],
+          f"{label}: the transfer ledger's h2d + resident bytes "
+          f"{d['bytes_h2d'] + d['resident_bytes']} and d2h "
+          f"{d['bytes_d2h']} differ from the kernels' operands "
+          f"{tap['in']} and results {tap['out']}")
+    per = {k: v / calls for k, v in d.items()}
+    if not quiet:
+        print(f"[{label}] transfer ledger a call over {calls} calls, equal "
+              f"to the engine's own tallies and to the kernels' operand "
+              f"and result bytes: " + ", ".join(
+                  f"{k} {v:g}" for k, v in per.items()))
+    return {"total": d, "per_call": per}
+
+
 def phase_txset(rng):
     signer_table_cache.configure(enabled=False)
     t0 = time.perf_counter()
@@ -754,6 +857,7 @@ def phase_txset(rng):
           "corrupted TxSet rows do not fail the oracle as planned")
     v = default_verifier()
     check(v.device.type == "cuda", f"default verifier on {v.device}")
+    mark = transfer_mark([v])
     got = v.verify_batch(items)
     torch.cuda.synchronize()
     check(np.array_equal(got, want),
@@ -761,15 +865,28 @@ def phase_txset(rng):
           f"{int((got != want).sum())} rows")
     check(v.served["device"] == TXSET_SIGS,
           f"device served {v.served['device']} of {TXSET_SIGS} rows")
+    first = transfer_view(mark, [v], 1, "txset first call")
+    check(first["total"]["bytes_h2d"] == TXSET_OPERAND_BYTES and
+          first["total"]["resident_hits"] == 0, "txset: the first call did "
+          f"not ship {TXSET_OPERAND_BYTES} B: {first['total']}")
     times = []
     before, resolves0 = tracing.span_totals(), \
         pipeline_timeline.totals()["resolves"]
+    mark = transfer_mark([v])
     for _ in range(TIMED_CALLS):
         t = time.perf_counter()
         out = v.verify_batch(items)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         check(np.array_equal(out, want), "a timed TxSet call differs")
+    transfer = transfer_view(mark, [v], TIMED_CALLS, "txset")
+    check(transfer["total"]["bytes_h2d"] ==
+          transfer["total"]["redundant_constant_bytes"] ==
+          TIMED_CALLS * TXSET_OPERAND_BYTES and
+          transfer["total"]["resident_hits"] == 0,
+          f"txset: a repeated call, the resident cache off, does not ship "
+          f"its {TXSET_OPERAND_BYTES} B again, redundant: "
+          f"{transfer['total']}")
     phases = engine_phases(before, tracing.span_totals(), TIMED_CALLS,
                            "verify", "txset", MIN_COVERAGE)
     pipeline = pipeline_view(resolves0, "crypto.verify", "txset")
@@ -786,7 +903,9 @@ def phase_txset(rng):
           f"over {TIMED_CALLS} calls; {TXSET_SIGS / p50 * 1e3:.0f} sigs/s "
           f"at p50; host encode alone p50 {enc50:.3f} ms")
     return ({"p50_ms": p50, "p90_ms": p90, "encode_p50_ms": enc50,
-             "engine_phases": phases, "pipeline": pipeline}, items, want)
+             "engine_phases": phases, "pipeline": pipeline,
+             "transfer_first_call": first["per_call"],
+             "transfer": transfer["per_call"]}, items, want)
 
 
 def phase_catchup(rng):
@@ -811,18 +930,21 @@ def phase_catchup(rng):
     check(not got[bad].any() and got.sum() == n - len(bad),
           "catchup: corrupted rows accepted or good rows rejected")
     times = []
+    mark = transfer_mark([v])
     for _ in range(CATCHUP_CALLS):
         t = time.perf_counter()
         out = v.verify_batch(items)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         check(np.array_equal(out, got), "a timed catchup call differs")
+    transfer = transfer_view(mark, [v], CATCHUP_CALLS, "catchup")
     p50, p90 = np.percentile(times, 50), np.percentile(times, 90)
     print(f"[catchup] {n} sigs ({len(bad)} corrupted), generated in "
           f"{gen:.1f} s; {len(sample)} rows checked; after one untimed call, "
           f"verify_batch p50 {p50:.3f} ms, p90 {p90:.3f} ms over "
           f"{CATCHUP_CALLS} calls ({n / p50 * 1e3:.0f} sigs/s at p50)")
-    return {"p50_ms": p50, "p90_ms": p90}, items, got, bad
+    return ({"p50_ms": p50, "p90_ms": p90, "transfer": transfer["per_call"]},
+            items, got, bad)
 
 
 def queued_ms(fn, reps):
@@ -1035,6 +1157,7 @@ def phase_hot_txset(items, want, k1_ops):
     times = []
     before, resolves0 = tracing.span_totals(), \
         pipeline_timeline.totals()["resolves"]
+    mark = transfer_mark([v])
     for _ in range(TIMED_CALLS):
         hot0 = v.served["hot"]
         t = time.perf_counter()
@@ -1046,6 +1169,12 @@ def phase_hot_txset(items, want, k1_ops):
         check(v.served["hot"] - hot0 == cacheable,
               f"hot TxSet: K2 served {v.served['hot'] - hot0} rows, not "
               f"{cacheable}")
+    transfer = transfer_view(mark, [v], TIMED_CALLS, "hot-txset")
+    check(transfer["total"]["unfingerprinted_uploads"] == TIMED_CALLS and
+          transfer["total"]["unfingerprinted_bytes"] ==
+          TIMED_CALLS * HOT_TABLE_BYTES, f"hot TxSet: the table operand is "
+          f"not one unfingerprinted upload of {HOT_TABLE_BYTES} B a call: "
+          f"{transfer['total']}")
     phases = engine_phases(before, tracing.span_totals(), TIMED_CALLS,
                            "verify", "hot-txset", MIN_COVERAGE)
     pipeline = pipeline_view(resolves0, "crypto.verify", "hot-txset")
@@ -1061,7 +1190,8 @@ def phase_hot_txset(items, want, k1_ops):
           f"alone p50 {stack_ms:.3f} ms")
     return ({"first_ms": first_ms, "p50_ms": p50, "p90_ms": p90,
              "hot_rows": cacheable, "stack_ms": stack_ms,
-             "engine_phases": phases, "pipeline": pipeline},
+             "engine_phases": phases, "pipeline": pipeline,
+             "transfer": transfer["per_call"]},
             hot_path_rows(items, KERNEL_BATCHES[0]))
 
 
@@ -1094,6 +1224,7 @@ def phase_hot_catchup(rng, items, cold, bad, k1_ops):
           "from the oracle on checked rows")
     times = []
     before = tracing.span_totals()
+    mark = transfer_mark([v])
     for _ in range(CATCHUP_CALLS):
         hot0 = v.served["hot"]
         t = time.perf_counter()
@@ -1104,6 +1235,7 @@ def phase_hot_catchup(rng, items, cold, bad, k1_ops):
         check(v.served["hot"] - hot0 == cacheable,
               "hot catchup: a timed call did not serve every cacheable "
               "row hot")
+    transfer = transfer_view(mark, [v], CATCHUP_CALLS, "hot-catchup")
     phases = engine_phases(before, tracing.span_totals(), CATCHUP_CALLS,
                            "verify", "hot-catchup")
     p50, p90 = np.percentile(times, 50), np.percentile(times, 90)
@@ -1119,7 +1251,8 @@ def phase_hot_catchup(rng, items, cold, bad, k1_ops):
           f"{stack_ms:.3f} ms")
     return ({"first_ms": first_ms, "first_hot_rows": first_hot,
              "p50_ms": p50, "p90_ms": p90, "hot_rows": cacheable,
-             "stack_ms": stack_ms, "engine_phases": phases},
+             "stack_ms": stack_ms, "engine_phases": phases,
+             "transfer": transfer["per_call"]},
             hot_path_rows(items, KERNEL_BATCHES[1]))
 
 
@@ -1253,11 +1386,13 @@ def phase_hashing(dev, rng, info, executed):
           "on the host")
     times = []
     before = tracing.span_totals()
+    mark = transfer_mark([h])
     for _ in range(HASH_CALLS):
         t = time.perf_counter()
         out = h.hash_batch(msgs)
         times.append((time.perf_counter() - t) * 1e3)
         check(out == want, "a timed hash_batch call differs from hashlib")
+    transfer = transfer_view(mark, [h], HASH_CALLS, "hashing")
     phases = engine_phases(before, tracing.span_totals(), HASH_CALLS,
                            "hash", "hashing")
     launches = sk.sha256_kernel.launches
@@ -1277,7 +1412,7 @@ def phase_hashing(dev, rng, info, executed):
            "p90_ms": np.percentile(times, 90),
            "hashlib_p50_ms": np.percentile(host, 50),
            "hashlib_p90_ms": np.percentile(host, 90), "oversize": n_over,
-           "engine_phases": phases,
+           "engine_phases": phases, "transfer": transfer["per_call"],
            "launches": launches, "rows_compared": sum(HASH_KERNEL_BATCHES),
            "max_abs_err": err, "by_batch": per_batch}
     print(f"[hashing] {HASH_MSGS} messages ({n_over} oversize, hashed on "
@@ -1455,6 +1590,7 @@ def phase_split(dev, txset_items, txset_want):
         served0 = dict(v.device_served)
         hot0 = v.served["hot"]
         times = []
+        mark = transfer_mark([v])
         for _ in range(TIMED_CALLS):
             t = time.perf_counter()
             out = v.verify_batch(txset_items)
@@ -1462,6 +1598,7 @@ def phase_split(dev, txset_items, txset_want):
             times.append((time.perf_counter() - t) * 1e3)
             check(np.array_equal(out, txset_want), f"split {mode} TxSet: "
                   "a timed call differs from the oracle")
+        transfer = transfer_view(mark, [v], TIMED_CALLS, f"split {mode}")
         per_index = {i: v.device_served.get(i, 0) - served0.get(i, 0)
                      for i in range(SPLIT)}
         check(all(n > 0 for n in per_index.values()),
@@ -1474,6 +1611,7 @@ def phase_split(dev, txset_items, txset_want):
                      "p50_ms": float(np.percentile(times, 50)),
                      "p90_ms": float(np.percentile(times, 90)),
                      "hot_rows_per_call": hot_rows,
+                     "transfer": transfer["per_call"],
                      "rows_per_index_per_call": {
                          str(i): n // TIMED_CALLS
                          for i, n in per_index.items()}}
@@ -1572,6 +1710,228 @@ def phase_audit_cost(items, want):
     return res
 
 
+def _add_totals(acc, before, after):
+    """Add the ``span_totals`` deltas between ``before`` and ``after`` to
+    ``acc``, a pair of totals (``acc[1] - acc[0]`` is the sum of the
+    deltas), for :func:`engine_phases`."""
+    for name, a in after.items():
+        b = before.get(name, {"count": 0, "sum_ms": 0.0})
+        acc[0].setdefault(name, {"count": 0, "sum_ms": 0.0})
+        tot = acc[1].setdefault(name, {"count": 0, "sum_ms": 0.0})
+        tot["count"] += a["count"] - b["count"]
+        tot["sum_ms"] += a["sum_ms"] - b["sum_ms"]
+
+
+def _fingerprint_ms(arr):
+    """Median ms of :func:`residency.fingerprint` over one host operand."""
+    return float(np.median(timed_ms(lambda: residency.fingerprint(arr),
+                                    FINGERPRINT_REPS)))
+
+
+def _copy_ms(dev, hosts):
+    """Median over ``COPY_REPS`` of the copies of pinned ``hosts`` to
+    ``dev`` as the engine issues them (``non_blocking``), ms: CUDA events
+    around the copies, and the host's wall time to issue them and
+    synchronise."""
+    card, wall = [], []
+    for _ in range(COPY_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        for h in hosts:
+            h.to(dev, non_blocking=True)
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+        card.append(start.elapsed_time(end))
+    return float(np.median(card)), float(np.median(wall))
+
+
+def _pinned(arr):
+    host = torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0]).dtype,
+                       pin_memory=True)
+    host.numpy()[:] = arr
+    return host
+
+
+def phase_transfer_cost(dev, rng, items, want):
+    """The cost of the transfer ledger and the resident cache. The
+    default verifier runs four modes in turns, TRANSFER_CALLS timed calls
+    each after one untimed call, TRANSFER_TURNS times: the cold TxSet
+    with the resident cache on and the items repeated (4 resident hits a
+    call: the one mode whose traffic the cache serves), with the cache on
+    and fresh content every call (the items rotated by a new offset:
+    every operand's bytes new, 4 copies), with the cache off (the
+    default, as the main-path phases run: 4 copies, redundant), with the
+    cache off and both fingerprint caps at 0 (the ledger counting bytes
+    only, no SHA-256: what the ledger's fingerprint costs end to end),
+    and a hot TxSet repeat with the cache off (the table operand counted
+    bytes-only). Each mode's ledger deltas are
+    checked a turn. Then the fingerprint alone a call and an operand (and
+    of the hasher's 1 MiB words operand at its 2,048 bucket), the four
+    cold copies a hit saves and the hot table operand's copy by CUDA
+    events, with its GB/s; last one cold call's Chrome trace written
+    under ``build/`` and a few lines of the Prometheus text."""
+    v = default_verifier()
+    n = len(items)
+    times = {m: [] for m in TRANSFER_MODES}
+    per_turn = {m: [] for m in TRANSFER_MODES}
+    # each mode's engine phases, summed over its turns
+    spans = {m: [{}, {}] for m in TRANSFER_MODES}
+    offsets = iter(range(1, n))
+
+    def call(mode):
+        its, exp = items, want
+        if mode == "fresh":
+            k = next(offsets)
+            its, exp = items[k:] + items[:k], np.roll(want, -k)
+        t = time.perf_counter()
+        out = v.verify_batch(its)
+        torch.cuda.synchronize()
+        check(np.array_equal(out, exp), f"transfer cost, {mode}: a call "
+              "differs from the oracle")
+        return (time.perf_counter() - t) * 1e3
+
+    expect = {
+        "repeated": {"bytes_h2d": 0, "resident_hits": 4},
+        "fresh": {"bytes_h2d": TXSET_OPERAND_BYTES, "resident_hits": 0},
+        "cache_off": {"bytes_h2d": TXSET_OPERAND_BYTES, "resident_hits": 0,
+                      "redundant_constant_bytes": TXSET_OPERAND_BYTES},
+        "bytes_only": {"bytes_h2d": TXSET_OPERAND_BYTES,
+                       "unfingerprinted_uploads": 4,
+                       "unfingerprinted_bytes": TXSET_OPERAND_BYTES,
+                       "redundant_constant_bytes": 0},
+        "hot_repeat": {"unfingerprinted_uploads": 1,
+                       "unfingerprinted_bytes": HOT_TABLE_BYTES}}
+    # the signer tables, kept across the cold modes' turns (turning the
+    # signer-table cache off clears it) and installed again for the hot
+    tables = {}
+    try:
+        for _ in range(TRANSFER_TURNS):
+            for mode in TRANSFER_MODES:
+                signer_table_cache.configure(enabled=mode == "hot_repeat")
+                bytes_only = mode == "bytes_only"
+                residency.resident_cache.configure(
+                    enabled=mode in ("repeated", "fresh"),
+                    max_item_bytes=0 if bytes_only
+                    else residency.DEFAULT_MAX_ITEM_BYTES)
+                transfer_ledger.configure(
+                    fp_max_bytes=0 if bytes_only else DEFAULT_FP_MAX_BYTES)
+                if mode == "hot_repeat":
+                    for pk, table in tables.items():
+                        signer_table_cache.install(pk, table)
+                call(mode)  # first sights, or the cache refilled
+                if mode == "hot_repeat" and not tables:
+                    tables = {pk: signer_table_cache.lookup(pk)
+                              for pk, _m, _s in items
+                              if signer_table_cache.lookup(pk) is not None}
+                mark = transfer_mark([v])
+                before = tracing.span_totals()
+                times[mode] += [call(mode) for _ in range(TRANSFER_CALLS)]
+                _add_totals(spans[mode], before, tracing.span_totals())
+                got = transfer_view(mark, [v], TRANSFER_CALLS,
+                                    f"transfer-cost {mode}", quiet=True)
+                for k, x in expect[mode].items():
+                    check(got["total"][k] == x * TRANSFER_CALLS,
+                          f"transfer cost, {mode}: {k} "
+                          f"{got['total'][k]}, not {x} a call")
+                per_turn[mode].append(got["per_call"])
+    finally:
+        residency.resident_cache.configure(
+            enabled=residency.ENABLED,
+            max_item_bytes=residency.DEFAULT_MAX_ITEM_BYTES)
+        transfer_ledger.configure(fp_max_bytes=DEFAULT_FP_MAX_BYTES)
+        signer_table_cache.configure(enabled=False)
+    check_dispatch_clean([v], "transfer cost")
+    res = {"modes": {m: {"p50_ms": float(np.percentile(times[m], 50)),
+                         "p90_ms": float(np.percentile(times[m], 90)),
+                         "calls": len(times[m]),
+                         "transfer_per_call": per_turn[m][-1],
+                         "engine_phases": engine_phases(
+                             *spans[m], len(times[m]), "verify",
+                             f"transfer-cost {m}")}
+                     for m in TRANSFER_MODES}}
+    for m, r in res["modes"].items():
+        t = r["transfer_per_call"]
+        print(f"[transfer-cost] {m}: p50 {r['p50_ms']:.3f} ms, p90 "
+              f"{r['p90_ms']:.3f} ms over {r['calls']} calls in "
+              f"{TRANSFER_TURNS} turns; a call: h2d {t['bytes_h2d']:g} B, "
+              f"resident hits {t['resident_hits']:g} "
+              f"({t['resident_bytes']:g} B), unfingerprinted "
+              f"{t['unfingerprinted_uploads']:g} "
+              f"({t['unfingerprinted_bytes']:g} B), redundant "
+              f"{t['redundant_constant_bytes']:g} B, d2h "
+              f"{t['bytes_d2h']:g} B, round trips {t['round_trips']:g}")
+    # the fingerprint alone, on the cold TxSet call's padded operands
+    wl = Ed25519Workload()
+    _, enc = wl.encode(items)
+    ops = [np.concatenate([e, np.repeat(p, KERNEL_BATCHES[0] - len(e), 0)])
+           for e, p in zip(enc, wl.pad_rows())]
+    fp_ops = [_fingerprint_ms(a) for a in ops]
+    words, _active, _fits = sk.pack_messages(
+        hash_messages(rng, HASH_MSGS)[0], MAX_BLOCKS)
+    check(words.nbytes == residency.DEFAULT_MAX_ITEM_BYTES and
+          residency.fingerprint(words) is not None, "the hasher's words "
+          "operand is not exactly at the cap, fingerprinted")
+    res["fingerprint"] = {"per_operand_ms": fp_ops,
+                          "per_call_ms": float(sum(fp_ops)),
+                          "operand_bytes": int(ops[0].nbytes),
+                          "hash_words_1mib_ms": _fingerprint_ms(words)}
+    copy4_card, copy4_wall = _copy_ms(dev, [_pinned(a) for a in ops])
+    table = _pinned(rng.integers(-2 ** 12, 2 ** 12, size=(
+        KERNEL_BATCHES[0], 128, 3, 20), dtype=np.int16))
+    check(table.numpy().nbytes == HOT_TABLE_BYTES, "table operand size")
+    table_card, table_wall = _copy_ms(dev, [table])
+    res["copies"] = {"cold_four_card_ms": copy4_card,
+                     "cold_four_wall_ms": copy4_wall,
+                     "hot_table_card_ms": table_card,
+                     "hot_table_wall_ms": table_wall,
+                     "hot_table_gb_s": HOT_TABLE_BYTES / table_card / 1e6}
+    f = res["fingerprint"]
+    c = res["copies"]
+    print(f"[transfer-cost] fingerprint alone (SHA-256 of the host rows): "
+          f"{f['per_call_ms']:.4f} ms a cold TxSet call, "
+          + " / ".join(f"{x:.4f}" for x in fp_ops)
+          + f" ms an operand of {f['operand_bytes']} B; the hasher's 1 MiB "
+          f"words operand {f['hash_words_1mib_ms']:.4f} ms. The four cold "
+          f"copies a hit saves: {copy4_card:.4f} ms on the card, "
+          f"{copy4_wall:.4f} ms host wall to issue and synchronise. The hot "
+          f"table operand ({HOT_TABLE_BYTES} B, pinned): "
+          f"{table_card:.4f} ms by CUDA events, "
+          f"{c['hot_table_gb_s']:.2f} GB/s ({table_wall:.4f} ms wall)")
+    # one cold call's Chrome trace and the Prometheus text
+    signer_table_cache.configure(enabled=False)
+    tracing.flight_recorder.clear()
+    pipeline_timeline._reset_for_testing()
+    check(np.array_equal(v.verify_batch(items), want), "the traced call "
+          "differs from the oracle")
+    trace = tracing.flight_recorder.to_chrome_trace()
+    events = trace["traceEvents"]
+    kinds = collections.Counter(e["ph"] for e in events)
+    check(any(e["name"] == "span.verify.blocking" and e["ph"] == "B"
+              for e in events) and
+          any(e["name"] == "transfer.bytes" for e in events),
+          "the Chrome trace lacks the call's root span or its transfer "
+          "counter")
+    os.makedirs(os.path.dirname(CHROME_TRACE), exist_ok=True)
+    with open(CHROME_TRACE, "w") as fh:
+        json.dump(trace, fh)
+    prom = [line for line in registry.to_prometheus().splitlines()
+            if line.startswith(("crypto_transfer_", "crypto_resident_hits",
+                                'span_verify_blocking_ms{'))]
+    res["chrome_trace"] = {"path": os.path.relpath(CHROME_TRACE),
+                           "events": len(events), "by_phase": dict(kinds)}
+    print(f"[transfer-cost] one cold TxSet call's Chrome trace: "
+          f"{len(events)} events {dict(kinds)}, written to "
+          f"{res['chrome_trace']['path']}; Prometheus text, "
+          f"{len(prom)} lines of the ledger and the root span:")
+    for line in prom:
+        print(f"[transfer-cost]   {line}")
+    return res
+
+
 def _stalled_call(v, items, want, label, limit_s):
     """Queue a spin of STALL_S on the card's current stream, then call
     ``v.verify_batch(items)``: it must raise within ``limit_s`` of wall
@@ -1619,14 +1979,17 @@ def _stalled_call(v, items, want, label, limit_s):
           f"{label}: the dump's open spans are {open_names}")
     counts = (dict(v.served), v.deadline_misses, v.retries,
               v.audit_mismatches, len(v.audit_verdicts),
-              pipeline_timeline.totals())
+              pipeline_timeline.totals(), transfer_ledger.totals(),
+              v.fetched_bytes)
     torch.cuda.synchronize()
     spin_end_s = time.perf_counter() - t
     time.sleep(0.5)  # the abandoned fetches finish meanwhile
     check(counts == (dict(v.served), v.deadline_misses, v.retries,
                      v.audit_mismatches, len(v.audit_verdicts),
-                     pipeline_timeline.totals()),
-          f"{label}: a late completion moved a count")
+                     pipeline_timeline.totals(), transfer_ledger.totals(),
+                     v.fetched_bytes),
+          f"{label}: a late completion moved a count (the transfer "
+          "ledger's included)")
     time.sleep(max(v.health.breaker(i).seconds_until_retry()
                    for i in range(n_idx)))
     got = v.verify_batch(items)
@@ -1890,6 +2253,7 @@ def main() -> int:
     del k1_ops
     split, split_v = phase_split(dev, txset_items, txset_want)
     audit_cost = phase_audit_cost(txset_items, txset_want)
+    transfer_cost = phase_transfer_cost(dev, rng, txset_items, txset_want)
     deadline = phase_deadline(dev, txset_items, txset_want)
     probe = phase_probe()
     fault_domains = phase_faults(split_v, txset_items, txset_want)
@@ -1936,10 +2300,14 @@ def main() -> int:
         "hot_txset": hot_txset, "hot_catchup": hot_catchup,
         "hashing": {k: hashing[k] for k in (
             "p50_ms", "p90_ms", "hashlib_p50_ms", "hashlib_p90_ms",
-            "oversize")},
+            "oversize", "engine_phases", "transfer")},
         "txset_engine_phases": txset["engine_phases"],
         "txset_pipeline": txset["pipeline"],
+        "txset_transfer": txset["transfer"],
+        "txset_transfer_first_call": txset["transfer_first_call"],
+        "catchup_transfer": catchup["transfer"],
         "split_txset": split, "audit_cost": audit_cost,
+        "transfer_cost": transfer_cost,
         "deadline": deadline, "probe": probe,
         "fault_domains": fault_domains, "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))

@@ -66,12 +66,24 @@ splits a blocking call's wall time by phase. Each resolve also leaves a
 record of device busy and idle time in
 :data:`stellar_tpu_torch.utils.timeline.pipeline_timeline`.
 
+**Transfers and residency.** Each operand of a part is placed through
+:data:`stellar_tpu_torch.parallel.residency.resident_cache`: its padded
+host rows are fingerprinted, and while the cache is on (it starts off) a
+hit reuses the tensor already on the part's device (``resident_hits``)
+and a miss copies the rows and keeps the copy; while it is off every
+operand is copied. :data:`stellar_tpu_torch.utils.transfer_ledger.transfer_ledger`
+records each upload (with the fingerprint), each hit, and each accepted
+result's whole padded rows; the engine keeps its own shape-derived
+tallies beside it (``shipped_bytes``, ``fetched_bytes``), and a
+resolve's ledger record rides its pipeline record. The reference's
+coalesced sharded upload and donated operands have no counterpart here
+(ROADMAP.md, divergences): each part's slice of one pinned fill is one
+copy an operand on its device's stream, and the caching allocator reuses
+a freed operand's block.
+
 **Probe.** :func:`device_available` answers whether a card is reachable
 from a daemon probe thread with a deadline and a breaker of its own; it
 feeds :func:`dispatch_health` and sends nothing to the CPU.
-
-Not in this slice (ROADMAP.md): the transfer ledger, the coalesced
-upload, donation and the resident constant cache.
 """
 
 from __future__ import annotations
@@ -89,11 +101,12 @@ import torch
 
 from stellar_tpu_torch.crypto import audit
 from stellar_tpu_torch.ops import _build
-from stellar_tpu_torch.parallel import device_health
+from stellar_tpu_torch.parallel import device_health, residency
 from stellar_tpu_torch.utils import faults, resilience, tracing
 from stellar_tpu_torch.utils.device import resolve_device
 from stellar_tpu_torch.utils.metrics import registry
 from stellar_tpu_torch.utils.timeline import pipeline_timeline
+from stellar_tpu_torch.utils.transfer_ledger import transfer_ledger
 
 __all__ = ["DEFAULT_BUCKET_SIZES", "Workload", "BatchEngine",
            "configure_dispatch", "device_available", "start_device_probe",
@@ -276,7 +289,8 @@ def dispatch_health() -> dict:
     """The dispatch layer's state: the probe, the knobs, the process's
     deadline, retry, short-circuit and audit counts, each default
     engine's fault domains (:meth:`BatchEngine.health_snapshot`), the
-    watchdog pool and the flight recorder's accounting."""
+    watchdog pool, the flight recorder's accounting, the transfer
+    ledger's totals and the resident cache."""
     return {
         "device_state": _device_state or "unprobed",
         "probe_breaker": _probe_breaker.snapshot(),
@@ -297,6 +311,8 @@ def dispatch_health() -> dict:
                     for name, eng in _default_engine_items()},
         "watchdog": resilience.watchdog_stats(),
         "flight_recorder": tracing.flight_recorder.stats(),
+        "transfer": transfer_ledger.totals(),
+        "resident": residency.resident_cache.snapshot(),
     }
 
 
@@ -369,14 +385,18 @@ class Workload:
 
 class _Part:
     """One part of a dispatched chunk: rows ``lo:hi``, padded to ``size``
-    on device index ``dev``; its launch ``(host_rows, event, refs)``
-    (``refs`` keeps the operands alive while the card may still read or
-    write them); the audit's sampled rows with their host verdicts."""
+    on device index ``dev``; its resolve's transfer-ledger token
+    ``ttok``; its launch ``(host_rows, event, refs)`` (``refs`` keeps
+    the operands alive while the card may still read or write them);
+    the audit's sampled rows with their host verdicts."""
 
-    __slots__ = ("lo", "hi", "size", "dev", "launched", "sample", "want")
+    __slots__ = ("lo", "hi", "size", "dev", "ttok", "launched", "sample",
+                 "want")
 
-    def __init__(self, lo: int, hi: int, size: int, dev: Optional[int]):
+    def __init__(self, lo: int, hi: int, size: int, dev: Optional[int],
+                 ttok):
         self.lo, self.hi, self.size, self.dev = lo, hi, size, dev
+        self.ttok = ttok
         self.launched = None
         self.sample: List[int] = []
         self.want = None
@@ -440,6 +460,13 @@ class BatchEngine:
         #: parts moved without a wait because their device's breaker was
         #: open when the resolve reached them
         self.short_circuits = 0
+        #: operands served from the resident cache instead of a copy
+        self.resident_hits = 0
+        #: bytes copied to a device and bytes of accepted results,
+        #: counted from the shapes, apart from the transfer ledger, which
+        #: must agree with them
+        self.shipped_bytes = 0
+        self.fetched_bytes = 0
         #: the last audit verdicts (``audit.verdict_record``), oldest first
         self.audit_verdicts: deque = deque(maxlen=256)
 
@@ -459,6 +486,9 @@ class BatchEngine:
                    "retries": self.retries,
                    "deadline_misses": self.deadline_misses,
                    "short_circuits": self.short_circuits,
+                   "resident_hits": self.resident_hits,
+                   "shipped_bytes": self.shipped_bytes,
+                   "fetched_bytes": self.fetched_bytes,
                    "convicted": sorted(self.convicted)}
         out["device_health"] = self.health.snapshot()
         return out
@@ -494,19 +524,59 @@ class BatchEngine:
             hosts.append(host)
         return tuple(hosts)
 
+    def _place_operands(self, hosts: tuple, rows: slice,
+                        dev: torch.device, part: _Part) -> list:
+        """The part's operands on ``dev``, through the resident cache
+        keyed by the physical device: a hit reuses the tensor already
+        there; a miss (every operand while the cache is off) copies the
+        padded host rows (``non_blocking``, on the device's current
+        stream), records the upload with its fingerprint, and offers the
+        copy to the cache. A kept tensor is a whole fresh copy that
+        kernels only read."""
+        cache = residency.resident_cache
+        pkey = str(dev)
+        ops = []
+        for h in hosts:
+            host = h[rows]
+            arr = host.numpy()
+            fp = residency.fingerprint(arr)
+            hit = cache.get(fp, arr, pkey)
+            if hit is not None:
+                transfer_ledger.record_resident_hit(part.ttok, arr)
+                with self._stats_lock:
+                    self.resident_hits += 1
+                ops.append(hit)
+                continue
+            placed = host.to(dev, non_blocking=True)
+            # an operand over the cache's cap is fingerprinted under the
+            # ledger's own cap
+            if fp is not None:
+                transfer_ledger.record_h2d(part.ttok, arr, fp=fp)
+            else:
+                transfer_ledger.record_h2d(part.ttok, arr)
+            with self._stats_lock:
+                self.shipped_bytes += int(np.prod(arr.shape)) * \
+                    arr.dtype.itemsize
+            cache.put(fp, arr, pkey, placed)
+            ops.append(placed)
+        return ops
+
     def _launch_part(self, plugin: Workload, hosts: tuple, part: _Part):
-        """The part's padded rows (its slice of ``hosts``): copy to its
-        device, the plugin's kernel and the copy of the result back, on
-        the device's current stream. Returns ``(host_rows, event,
-        refs)`` (event None on the CPU); a copy or launch fault raises
-        its ``RuntimeError`` after ``DISPATCH_RETRIES`` fresh launches."""
+        """The part's padded rows (its slice of ``hosts``): placed on its
+        device through the resident cache, the plugin's kernel and the
+        copy of the result back, on the device's current stream. Returns
+        ``(host_rows, event, refs)`` (event None on the CPU); a copy or
+        launch fault raises its ``RuntimeError`` after
+        ``DISPATCH_RETRIES`` fresh launches. A transfer fault is
+        injected before the cache is asked, so it charges a device whose
+        operands would have been hits."""
         dev = self._devs[part.dev]
         cuda = dev.type == "cuda"
         scope = torch.cuda.device(dev) if cuda else contextlib.nullcontext()
         rows = slice(part.lo, part.lo + part.size)
         with scope:
             faults.inject(faults.TRANSFER, device=part.dev)
-            ops = [h[rows].to(dev, non_blocking=True) for h in hosts]
+            ops = self._place_operands(hosts, rows, dev, part)
         for attempt in range(1 + DISPATCH_RETRIES):
             try:
                 with scope:
@@ -566,7 +636,7 @@ class BatchEngine:
             part.dev = left[0]
 
     def _dispatch(self, plugin: Workload, encoded: tuple, chunk: int,
-                  ptok, traces) -> Tuple[tuple, List[_Part]]:
+                  ptok, ttok, traces) -> Tuple[tuple, List[_Part]]:
         """Dispatch one encoded chunk without blocking: one part, or with
         a split one sub-chunk a device. Returns the padded host rows and
         the parts."""
@@ -593,7 +663,8 @@ class BatchEngine:
         with tracing.span(f"{self._span_ns}.dispatch",
                           **_with_traces(traces)):
             for j, di in enumerate(assignment):
-                part = _Part(j * size, min(j * size + size, chunk), size, di)
+                part = _Part(j * size, min(j * size + size, chunk), size, di,
+                             ttok)
                 self._place(plugin, hosts, part, set(), None, ptok)
                 parts.append(part)
         return hosts, parts
@@ -617,19 +688,18 @@ class BatchEngine:
                 part.want = np.asarray(plugin.host_result(
                     [items_c[part.lo + i] for i in part.sample]))
 
-    def _fetch(self, launched: tuple, dev: int, n: int,
-               traces) -> np.ndarray:
-        """The first ``n`` result rows of a launch; runs on a watchdog
-        worker (or the caller's thread when unguarded). Writes no count:
-        a fetch whose deadline passed finishes here unread."""
+    def _fetch(self, launched: tuple, dev: int, traces) -> np.ndarray:
+        """A launch's whole padded result rows; runs on a watchdog worker
+        (or the caller's thread when unguarded). Writes no count, the
+        transfer ledger included: a fetch whose deadline passed finishes
+        here unread."""
         host, event, _refs = launched
         with tracing.span(f"{self._span_ns}.fetch.device",
                           **_with_traces(traces, device=dev)):
             faults.inject(faults.RESOLVE, device=dev)
             if event is not None:
                 event.synchronize()
-            vals = host[:n].numpy()
-            return faults.corrupt_verdicts(faults.RESOLVE, dev, vals)
+            return faults.corrupt_verdicts(faults.RESOLVE, dev, host.numpy())
 
     def _wait(self, part: _Part, ptok, traces):
         """The part's rows, fetched under the deadline: ``(rows, None)``,
@@ -639,14 +709,19 @@ class BatchEngine:
         with tracing.span(f"{self._span_ns}.fetch", **attrs), \
                 pipeline_timeline.host_phase(ptok, "fetch"):
             try:
-                vals = resilience.call_with_deadline(
+                full = resilience.call_with_deadline(
                     functools.partial(self._fetch, part.launched, part.dev,
-                                      part.hi - part.lo, traces),
+                                      traces),
                     _resolve_budget_s(self._devs[part.dev]),
                     name=f"{self._span_ns}-resolve")
-                # the one point where a result is accepted
+                # the one point where a result is accepted: the ledger,
+                # the engine's tally and the timeline count it here only
+                transfer_ledger.record_d2h(part.ttok, full)
+                with self._stats_lock:
+                    self.fetched_bytes += int(np.prod(full.shape)) * \
+                        full.dtype.itemsize
                 pipeline_timeline.note_delivery(ptok, part.dev)
-                return vals, None
+                return full[:part.hi - part.lo], None
             except resilience.DeadlineExceeded as e:
                 registry.counter(
                     "crypto.verify.dispatch.deadline_miss").inc()
@@ -765,6 +840,7 @@ class BatchEngine:
 
         self._prepare(plugin)
         ptok = pipeline_timeline.begin(self._ns)
+        ttok = transfer_ledger.begin(self._ns)
         top = self._buckets[-1]
         pending = []
         for start in range(0, n, top):
@@ -775,7 +851,7 @@ class BatchEngine:
                 with self._stats_lock:
                     self.served["host"] += int((~gate).sum())
             hosts, parts = self._dispatch(
-                plugin, encoded, len(chunk), ptok,
+                plugin, encoded, len(chunk), ptok, ttok,
                 traces_of(start, start + len(chunk))) \
                 if gate.any() else (None, [])
             pending.append((start, chunk, gate, encoded, hosts, parts))
@@ -803,8 +879,11 @@ class BatchEngine:
                     return results[0] if len(results) == 1 else \
                         np.concatenate(results)
                 finally:
+                    # both idempotent; the ledger's record rides the
+                    # pipeline record
+                    transfer = transfer_ledger.finish(ttok)
                     if dispatched:
-                        pipeline_timeline.close(ptok)
+                        pipeline_timeline.close(ptok, transfer=transfer)
 
         return resolve
 
@@ -933,12 +1012,15 @@ def device_available(timeout_s: float = 30.0, block: bool = True) -> bool:
 
 
 def _reset_dispatch_state_for_testing() -> None:
-    """The probe, its breaker and the pipeline timeline as at process
-    start (tests and ``chip_smoke.py``). Engines keep their own state;
-    cumulative metrics are untouched."""
+    """The probe, its breaker, the pipeline timeline, the transfer ledger
+    and the resident cache as at process start (tests and
+    ``chip_smoke.py``). Engines keep their own state; cumulative metrics
+    are untouched."""
     global _device_state, _probe
     with _device_probe_lock:
         _device_state = None
         _probe = None
     _probe_breaker.record_success()
     pipeline_timeline._reset_for_testing()
+    transfer_ledger._reset_for_testing()
+    residency.resident_cache._reset_for_testing()

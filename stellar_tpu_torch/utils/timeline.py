@@ -22,7 +22,10 @@ padding, the wait for a result, the audit) as intervals
 * ``busy_frac`` = busy / (devices x wall), ``overlap_frac`` = prep time
   concurrent with in-flight work / prep time, and ``reconciliation``
   (busy plus classed bubbles over devices x wall, about 1.0 when every
-  hook fired).
+  hook fired);
+* ``transfer``: the resolve's transfer-ledger record
+  (:mod:`stellar_tpu_torch.utils.transfer_ledger`), its round trips and
+  bytes each way, so one record carries bytes and occupancy.
 
 Records land in a bounded ring and in running totals, and set the
 ``crypto.pipeline.*`` metrics. The engine ends a resolve's token with
@@ -35,8 +38,14 @@ at once and returns the record. Stamps are the span clock
 (:func:`stellar_tpu_torch.utils.tracing._now_ms`). All state changes
 under the instance lock.
 
-Left out (ROADMAP.md): the Chrome counter export
-(``chrome_counter_events``) and the transfer ledger's bytes in a record.
+:meth:`PipelineTimeline.chrome_counter_events` renders the ring as Chrome
+counter tracks (a device's work in flight, ``busy_frac``, cumulative
+transfer bytes), merged into
+:meth:`stellar_tpu_torch.utils.tracing.FlightRecorder.to_chrome_trace`.
+
+Left out (ROADMAP.md, queue 1 step 2): the time-series and SLO classes,
+which serve the verify service's seam, and ``configure``, which sizes the
+ring from the application's config.
 """
 
 from __future__ import annotations
@@ -120,7 +129,7 @@ class ResolveTimeline:
     fields mutate under the owning profiler's lock)."""
 
     __slots__ = ("ns", "t0", "host", "open_parts", "parts",
-                 "delivered", "finished")
+                 "delivered", "finished", "transfer")
 
     def __init__(self, ns: str, t0: float):
         self.ns = ns
@@ -134,6 +143,8 @@ class ResolveTimeline:
         self.parts: List[tuple] = []
         self.delivered = 0
         self.finished = False
+        # the resolve's transfer-ledger record, given at close
+        self.transfer: Optional[dict] = None
 
 
 class _HostPhase:
@@ -242,19 +253,22 @@ class PipelineTimeline:
             if delivered:
                 tok.delivered += 1
 
-    def close(self, tok: Optional[ResolveTimeline]) -> None:
+    def close(self, tok: Optional[ResolveTimeline],
+              transfer: Optional[dict] = None) -> None:
         """End a resolve's token (idempotent) without building its
-        record: the end is stamped and the token queued, and the record
-        is built the next time records or totals are read (the oldest
-        one at once when a ring's worth waits unread). The engine's
-        resolve pays a stamp and a lock here, not the record's build."""
+        record: the end is stamped, ``transfer`` (the resolve's
+        transfer-ledger record) kept on the token, and the token queued;
+        the record is built the next time records or totals are read
+        (the oldest one at once when a ring's worth waits unread). The
+        engine's resolve pays a stamp and a lock here, not the record's
+        build."""
         if tok is None:
             return
         t_end = self._now()
         with self._lock:
             if tok.finished:
                 return
-            self._end_locked(tok, t_end)
+            self._end_locked(tok, t_end, transfer)
             self._pending.append((tok, t_end))
             # unread for a ring's worth of resolves: build the oldest
             rec = self._fold_locked(*self._pending.pop(0)) \
@@ -262,26 +276,30 @@ class PipelineTimeline:
         if rec is not None:
             self._publish(rec)
 
-    def finish(self, tok: Optional[ResolveTimeline]) -> Optional[dict]:
+    def finish(self, tok: Optional[ResolveTimeline],
+               transfer: Optional[dict] = None) -> Optional[dict]:
         """End a resolve's token and return its record: reconstruct the
         per-device timeline, classify bubbles, fold into totals and
         metrics, and append the record to the ring (idempotent — a
-        resolver resolved twice records once)."""
+        resolver resolved twice records once). ``transfer`` is the
+        resolve's transfer-ledger record, carried in the record."""
         if tok is None:
             return None
         t_end = self._now()
         with self._lock:
             if tok.finished:
                 return None
-            self._end_locked(tok, t_end)
+            self._end_locked(tok, t_end, transfer)
         self._drain()
         with self._lock:
             rec = self._fold_locked(tok, t_end)
         self._publish(rec)
         return rec
 
-    def _end_locked(self, tok: ResolveTimeline, t_end: float) -> None:
+    def _end_locked(self, tok: ResolveTimeline, t_end: float,
+                    transfer: Optional[dict]) -> None:
         tok.finished = True
+        tok.transfer = transfer
         # abandoned in-flight parts (resolver dropped mid-fetch):
         # closed at the resolve end, never delivered
         for d, stamps in tok.open_parts.items():
@@ -433,6 +451,11 @@ class PipelineTimeline:
             "intervals_capped": capped,
             "gap_list": gap_list,
         }
+        if tok.transfer is not None:
+            rec["transfer"] = {
+                k: tok.transfer.get(k, 0)
+                for k in ("round_trips", "bytes_h2d", "bytes_d2h",
+                          "redundant_constant_bytes")}
         return rec
 
     # ---------------- introspection ----------------
@@ -481,6 +504,40 @@ class PipelineTimeline:
         out["ring_capacity"] = self._ring.maxlen
         out["recent"] = self.recent(limit)
         return out
+
+    def chrome_counter_events(self) -> List[dict]:
+        """Chrome ``trace_event`` counter samples (``ph: "C"``) from the
+        ring: a device's in-flight track (1 inside each busy interval, 0
+        outside), a ``busy_frac`` track a resolve, and cumulative
+        transfer bytes at each resolve's end, on the span clock, so one
+        trace shows spans, bytes and occupancy together."""
+        self._drain()
+        with self._lock:
+            recs = [dict(r) for r in self._ring]
+        events: List[dict] = []
+
+        def counter(name, ts_ms, **vals):
+            events.append({"name": name, "ph": "C", "pid": 1,
+                           "tid": 0, "ts": round(ts_ms * 1000.0, 1),
+                           "args": vals})
+
+        cum_h2d = cum_d2h = 0
+        for rec in recs:
+            for d, dev in sorted(rec.get("devices", {}).items()):
+                for t0, t1 in dev["intervals"]:
+                    counter(f"pipeline.dev{d}.inflight", t0, inflight=1)
+                    counter(f"pipeline.dev{d}.inflight", t1, inflight=0)
+            if rec.get("busy_frac") is not None:
+                counter("pipeline.busy_frac", rec["t1_ms"],
+                        busy_frac=rec["busy_frac"])
+            tr = rec.get("transfer")
+            if tr:
+                cum_h2d += tr.get("bytes_h2d", 0)
+                cum_d2h += tr.get("bytes_d2h", 0)
+                counter("transfer.bytes", rec["t1_ms"],
+                        h2d=cum_h2d, d2h=cum_d2h)
+        events.sort(key=lambda e: e["ts"])
+        return events
 
     def _reset_for_testing(self) -> None:
         """Fresh profiler state (ring + totals). Cumulative registry

@@ -22,15 +22,19 @@ copy of ``stellar_tpu/utils/tracing.py``.
   the call that started it.
 * The :class:`FlightRecorder` keeps the last N closed spans and every
   open one; ``dump(reason)`` snapshots both when the engine charges a
-  watchdog timeout, a quarantine or an audit mismatch.
+  watchdog timeout, a quarantine or an audit mismatch;
+  ``to_chrome_trace()`` renders them as Chrome ``trace_event`` JSON
+  (``chrome://tracing``, Perfetto) with the pipeline timeline's counter
+  tracks.
 
 Times are monotonic milliseconds since this module was imported
 (:func:`_now_ms`); they feed metrics and the recorder, never a
 decision.
 
-Left out (ROADMAP.md): the Chrome trace export (``to_chrome_trace``)
-and ``trace_timeline``'s summary of the verify service's milestones,
-which the port does not write; ``frame_mark``.
+Left out (ROADMAP.md, queue 1 step 2): ``trace_timeline``'s ``summary``
+and ``stitch`` of the verify service's and the fleet's milestones, and
+``to_chrome_trace``'s per-replica tracks, which the port does not write
+yet; ``frame_mark``, which the ledger close calls.
 """
 
 from __future__ import annotations
@@ -45,8 +49,8 @@ from typing import Dict, List, Optional
 from stellar_tpu_torch.utils.metrics import registry
 
 __all__ = ["span", "zone", "LogSlowExecution", "current_context",
-           "span_context", "FlightRecorder", "flight_recorder",
-           "span_totals", "trace_matches"]
+           "span_context", "FlightRecorder",
+           "flight_recorder", "span_totals", "trace_matches"]
 
 _log = logging.getLogger("stellar_tpu_torch.perf")
 
@@ -223,6 +227,87 @@ class FlightRecorder:
             p["total_ms"] = round(p["total_ms"] + r["dur_ms"], 3)
         return {"trace": tid, "found": bool(records),
                 "records": records, "phases": phases}
+
+    def to_chrome_trace(self) -> dict:
+        """The recorder as Chrome ``trace_event`` JSON: a thread-named
+        track each (``M`` events), closed spans as nested ``B``/``E``
+        pairs, instant events and open or abandoned spans as ``i``
+        instants (an open span has no duration yet: the instant marks
+        where it is parked), and the pipeline timeline's counter tracks
+        (``C``) on the same clock. Nesting follows the records' parent
+        links on one thread, and a child's interval is clamped inside
+        its parent's, so rounding never crosses a begin/end pair."""
+        with self._lock:
+            done = [dict(r) for r in self._ring]
+            open_ = [dict(r, open=True) for r in self._active.values()]
+        spans = [r for r in done
+                 if not r.get("event") and r.get("dur_ms") is not None]
+        instants = [r for r in done
+                    if r.get("event") or r.get("dur_ms") is None]
+        instants += open_
+        tids: Dict[str, int] = {}
+
+        def tid_of(thread: str) -> int:
+            if thread not in tids:
+                tids[thread] = len(tids) + 1
+            return tids[thread]
+
+        by_id = {r["id"]: r for r in spans}
+        children: Dict[int, list] = {}
+        roots: Dict[str, list] = {}
+        for r in spans:
+            p = r.get("parent")
+            if p in by_id and by_id[p]["thread"] == r["thread"]:
+                children.setdefault(p, []).append(r)
+            else:
+                roots.setdefault(r["thread"], []).append(r)
+        events: List[dict] = []
+
+        def emit(r, lo_ms: float, hi_ms: float) -> float:
+            """One span's B/E pair and its subtree, clamped to the
+            parent's [lo_ms, hi_ms]; returns the span's end, so a
+            sibling cannot overlap it."""
+            t0 = min(max(r["start_ms"], lo_ms), hi_ms)
+            t1 = min(max(t0, r["start_ms"] + r["dur_ms"]), hi_ms)
+            tid = tid_of(r["thread"])
+            args = {"id": r["id"]}
+            if r.get("attrs"):
+                args.update(r["attrs"])
+            events.append({"name": r["name"], "ph": "B", "pid": 1,
+                           "tid": tid, "ts": round(t0 * 1000.0, 1),
+                           "args": args})
+            cursor = t0
+            for c in sorted(children.get(r["id"], []),
+                            key=lambda x: (x["start_ms"], x["id"])):
+                cursor = emit(c, max(cursor, t0), t1)
+            events.append({"name": r["name"], "ph": "E", "pid": 1,
+                           "tid": tid, "ts": round(t1 * 1000.0, 1)})
+            return t1
+
+        for thread, rs in sorted(roots.items()):
+            cursor = 0.0
+            for r in sorted(rs, key=lambda x: (x["start_ms"], x["id"])):
+                cursor = emit(r, max(cursor, r["start_ms"]), float("inf"))
+        for r in instants:
+            args = {"id": r["id"]}
+            if r.get("attrs"):
+                args.update(r["attrs"])
+            if r.get("open"):
+                args["open"] = True
+            if r.get("abandoned"):
+                args["abandoned"] = True
+            events.append({"name": r["name"], "ph": "i", "pid": 1,
+                           "tid": tid_of(r["thread"]), "s": "t",
+                           "ts": round(r["start_ms"] * 1000.0, 1),
+                           "args": args})
+        # imported here: the timeline imports this module at load time
+        from stellar_tpu_torch.utils.timeline import pipeline_timeline
+        events += pipeline_timeline.chrome_counter_events()
+        meta = [{"name": "thread_name", "ph": "M", "pid": 1, "tid": tid,
+                 "args": {"name": thread}}
+                for thread, tid in sorted(tids.items(),
+                                          key=lambda kv: kv[1])]
+        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
 
     def clear(self) -> None:
         """Drop every record, open span, dump and count."""

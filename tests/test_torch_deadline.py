@@ -419,16 +419,20 @@ def test_failed_probe_is_reprobed_when_the_breaker_allows():
 # keys whose meaning the port shares with the reference's dispatch_health
 SHARED_KEYS = {"device_state", "deadline_ms", "dispatch_retries",
                "deadline_misses", "retries", "short_circuits", "audit",
-               "watchdog", "flight_recorder"}
+               "watchdog", "flight_recorder", "transfer", "resident"}
 # the reference's process-wide breaker gates dispatch; the port's paces
 # only the probe, and each engine keeps its own breakers and tallies
 PORT_ONLY = {"probe_breaker", "engines"}
-# no host failover, no host-only mode; the transfer ledger, residency,
-# donation, the service and the fleet are not ported; the signer-table
-# cache reports through its own snapshot
+# no host failover, no host-only mode; no donation (the caching allocator
+# reuses a freed operand's block); the service and the fleet are not
+# ported; the signer-table cache reports through its own snapshot
 REFERENCE_ONLY = {"breaker", "served", "fallback_chunks", "host_only",
-                  "device_health", "transfer", "resident", "signer_tables",
-                  "donate_buffers", "service", "fleet"}
+                  "device_health", "signer_tables", "donate_buffers",
+                  "service", "fleet"}
+# the reference engine's counters with no counterpart in the port: no
+# coalesced sharded upload (one copy an operand a part on its device's
+# stream) and no donated dispatch
+REFERENCE_ENGINE_ONLY = {"coalesced_dispatches", "donated_dispatches"}
 
 
 def test_dispatch_health_shape_against_the_reference():
@@ -440,13 +444,87 @@ def test_dispatch_health_shape_against_the_reference():
     assert set(port["audit"]) == set(ref["audit"])
     assert set(port["watchdog"]) == set(ref["watchdog"])
     assert set(port["flight_recorder"]) == set(ref["flight_recorder"])
+    assert port["transfer"] == ref["transfer"]
+    # the port's resident cache starts off, the reference's on
+    assert (port["resident"]["enabled"], ref["resident"]["enabled"]) == \
+        (False, True)
+    assert dict(port["resident"], enabled=True) == ref["resident"]
     assert port["device_state"] == ref["device_state"] == "unprobed"
     assert port["deadline_ms"] == 8000.0 and "deadline_ms" in ref
     v = bv.default_verifier("cpu")
     eng = port_engine = bv.dispatch_health()["engines"]["verify:cpu"]
     assert set(eng) == {"devices", "served", "device_served", "retries",
                         "deadline_misses", "short_circuits", "convicted",
-                        "device_health"}
+                        "device_health", "resident_hits", "shipped_bytes",
+                        "fetched_bytes"}
+    fresh = bv.BatchVerifier(device="cpu").health_snapshot()
+    ref_engine = jbv.BatchVerifier(bucket_sizes=(16,))
+    for key in ("resident_hits", "shipped_bytes", "fetched_bytes"):
+        assert fresh[key] == getattr(ref_engine, key) == 0
+    for key in REFERENCE_ENGINE_ONLY:
+        assert hasattr(ref_engine, key) and key not in eng
     assert set(port_engine["device_health"]) == \
         set(ref["device_health"])
     assert be.served_counts()["verify:cpu"] == v.served
+
+
+# ---------------- chaos shapes of the reference, raising ----------------
+
+
+@pytest.fixture
+def cold_only():
+    from stellar_tpu_torch.parallel import signer_tables
+    cache = signer_tables.signer_table_cache
+    cache.configure(enabled=False)
+    yield
+    cache.configure(enabled=True)
+
+
+def test_edge_corpus_under_resolve_hang_raises_on_one_device(cold_only):
+    """The reference's ``test_failover_parity_edge_corpus_under_resolve_
+    hang`` (``tests/test_chaos_dispatch.py``), where the port has no host
+    failover: on one device the edge corpus under a resolve hang raises
+    once the deadline passes, the miss chained, and no verdict escapes."""
+    from stellar_tpu_torch.crypto import vectors
+    from stellar_tpu_torch.crypto.batch_verifier import BatchVerifier
+    items = vectors.edge_corpus(np.random.default_rng(93))
+    v = BatchVerifier(device="cpu", bucket_sizes=(64,))  # one chunk
+    be.configure_dispatch(deadline_ms=150)
+    faults.set_fault(faults.RESOLVE, "hang", 1.0)
+    resolve = v.submit(items)
+    t = time.monotonic()
+    with pytest.raises(RuntimeError, match="no device left") as err:
+        resolve()
+    waited = time.monotonic() - t
+    assert 0.15 <= waited < 0.15 + 0.5
+    assert isinstance(err.value.__cause__, resilience.DeadlineExceeded)
+    assert v.deadline_misses == 1 and v.served["device"] == 0
+    assert v.health.snapshot()["devices"]["0"]["consecutive_failures"] == 1
+
+
+def _convict_between_submit_and_resolve(v, items):
+    resolve = v.submit(items)
+    v.convicted.add(0)
+    v.health.quarantine(0, reason="audit-mismatch")
+    return resolve
+
+
+def test_device_convicted_mid_resolve_moves_its_parts_or_raises(cold_only):
+    """The reference's ``test_host_only_flips_mid_resolve``: the device
+    that served a part is convicted between ``submit`` and ``resolve``
+    (the port has no host-only mode; a conviction is its counterpart).
+    Its in-flight part is not accepted: on the split it moves to index 1,
+    and on one device the call raises."""
+    from stellar_tpu_torch.crypto import vectors
+    from stellar_tpu_torch.crypto.batch_verifier import BatchVerifier
+    items = vectors.valid_items(np.random.default_rng(94), 3)
+    v = BatchVerifier(devices=["cpu"] * 2, bucket_sizes=(8,))
+    got = _convict_between_submit_and_resolve(v, items)()
+    assert got.all()
+    assert v.served["device"] == 3 and v.device_served == {1: 3}
+    assert v.health.quarantined(2) == [0]
+    one = BatchVerifier(device="cpu", bucket_sizes=(8,))
+    resolve = _convict_between_submit_and_resolve(one, items)
+    with pytest.raises(RuntimeError, match="no device left"):
+        resolve()
+    assert one.served["device"] == 0

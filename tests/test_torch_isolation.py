@@ -33,9 +33,11 @@ def test_forbidden_imports_absent():
     files = _port_sources()
     assert len(files) > 10 and all(os.path.exists(f) for f in files)
     for module in ("metrics", "tracing", "timeline", "resilience",
-                   "faults"):
+                   "faults", "transfer_ledger"):
         assert os.path.join(ROOT, "stellar_tpu_torch", "utils",
                             f"{module}.py") in files
+    assert os.path.join(ROOT, "stellar_tpu_torch", "parallel",
+                        "residency.py") in files
     for path in files:
         with open(path) as f:
             hits = _FORBIDDEN.findall(f.read())
@@ -47,8 +49,10 @@ def test_import_and_verify_with_jax_blocked():
     imports the port, verifies three items on the CPU twice (the second
     time through the hot-signer path), runs K5 and K4 on two rows, verifies
     the three items again over a verifier split across two indices,
-    hashes forty messages, attributes a traced blocking call, and raises
-    from a deadline-guarded call under a ``hang`` fault."""
+    hashes forty messages, attributes a traced blocking call, reads the
+    transfer ledger, the resident cache, the Prometheus text and the
+    Chrome trace, and raises from a deadline-guarded call under a
+    ``hang`` fault."""
     code = "\n".join([
         "import sys, hashlib",
         "sys.modules['jax'] = None",
@@ -77,6 +81,8 @@ def test_import_and_verify_with_jax_blocked():
         "assert vk.verify_kernel_sharded(['cpu'] * 2)(*t).tolist() == "
         "[True, True]",
         "signer_tables.signer_table_cache.configure(enabled=False)",
+        "from stellar_tpu_torch.parallel.residency import resident_cache",
+        "resident_cache.configure(enabled=True)",
         "v2 = BatchVerifier(devices=['cpu'] * 2, bucket_sizes=(4,))",
         "assert v2.verify_batch(items).tolist() == [True, False, True]",
         "assert sorted(v2.device_served) == [0, 1]",
@@ -89,6 +95,19 @@ def test_import_and_verify_with_jax_blocked():
         "assert v2.verify_batch(items).tolist() == [True, False, True]",
         "att = be.dispatch_attribution(before, tracing.span_totals())",
         "assert att['coverage'] >= 0.95, att",
+        "from stellar_tpu_torch.utils.metrics import registry",
+        "from stellar_tpu_torch.utils.transfer_ledger import "
+        "transfer_ledger",
+        "h = be.dispatch_health()",
+        "assert h['transfer'] == transfer_ledger.totals()",
+        "assert h['transfer']['bytes_h2d'] > 0 and "
+        "h['transfer']['resident_hits'] > 0, h['transfer']",
+        "assert h['resident'] == resident_cache.snapshot()",
+        "assert h['resident']['entries'] > 0, h['resident']",
+        "assert 'crypto_transfer_bytes_h2d ' in registry.to_prometheus()",
+        "trace = tracing.flight_recorder.to_chrome_trace()",
+        "assert any(e['name'] == 'transfer.bytes' for e in "
+        "trace['traceEvents'])",
         "be.configure_dispatch(deadline_ms=100)",
         "faults.set_fault(faults.RESOLVE, 'hang', 0.5)",
         "v3 = BatchVerifier(device='cpu', bucket_sizes=(4,))",
