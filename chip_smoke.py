@@ -131,7 +131,41 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    state; under a 2 s probe hang False within 0.6 s (timeout 0.3 s),
    accounted dead, and a non-blocking ask answers at once caching
    nothing; after ``faults.clear()`` and the backoff True again;
-18. fault domains, last — on the 4-index verifier: ``fail-device`` on
+18. the verify service on the card — one-card verifiers of its own (the
+   default paths of (d) excepted), the signer-table cache on: (a) three threads submit to one started
+   ``VerifyService`` at once, 200 scp submissions of 3 signatures by 20
+   validator keys, 100 auth submissions of one signature from fresh keys
+   (2% corrupted), phase 4's TxSet in 20 bulk submissions of 100: every
+   verdict equal to the oracle, nothing shed, rejected or failed, the
+   conservation gap 0, K1 and K2 both launched; the wall time,
+   signatures a second, dispatches, items a dispatch and each lane's
+   wait p50, p90 and p99, with the waits and the dispatcher's
+   ``service.dispatch`` and ``service.resolve`` spans read from the
+   flight recorder; then a steady pass, every table built: a bulk
+   backlog of 160 submissions of 500 TxSet rows queued first, the scp
+   and auth submissions in bursts of 20, 40 ms apart, while it drains, the same checks,
+   and scp's wait p99 under bulk's wait p50; (b) two services fed one arrival order (a
+   flooding tenant over its depth quota of 16, a bulk backlog past the
+   high-water mark of a 64-deep lane, scp interleaved), their resolvers
+   held on one event until every arrival is admitted: equal decision
+   logs, journals (trace IDs rebased), tenant snapshots and ingress
+   refusals, every verified row equal to the oracle, no scp item shed;
+   (c) 64 threads through one ``TrickleBatcher`` (1 ms window): verdicts
+   equal to the oracle in fewer than 64 dispatches; then 16 callers of a
+   window on a second verifier under ``fail-device``: every one raises
+   within 2 s, none hangs; (d) ``keys.batch_verify_into_cache`` on the
+   TxSet with a verifier installed, timed, then ``keys.verify_sig`` on
+   each item: 2,000 cache hits, no K1 or K2 launch; then the default
+   paths on ``default_verifier()``: the same prefetch with no backend
+   installed, 2,000 hits equal to the oracle, and
+   ``verify_service.default_service()`` (``VerifyService()`` with no
+   verifier) on one submission a lane, equal to the oracle, each with
+   K1 or K2 launches and every row served by the default verifier; (e)
+   the service
+   behind a 2.5 s spin at a 200 ms deadline: the bulk ticket raises
+   within 1.0 s, its items count failed, the conservation gap stays 0,
+   and an scp submission after the spin equals the oracle;
+19. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -142,10 +176,12 @@ in order; each one fails loudly (a message on stderr, exit code 1):
 Each kernel's launch count is set to 0 just before its path runs and read
 just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
 7-8, K3 over phase 10's calls, K5 over phase 11's sweep calls, K4 over
-phase 12's calls, K1 and K2 again over phase 13, K1 over phase 16. After
-every main-path phase the dispatch must be clean: no device fault (no
-retry, every breaker closed and never opened), no audit mismatch, no
-conviction; only phases 16 and 18 expect otherwise. The engine has no host failover, so no
+phase 12's calls, K1 and K2 again over phase 13, K1 over phase 16, K1
+and K2 over phase 18 (``launches_service``; (a) alone
+``launches_service_mixed``). After every main-path phase the dispatch
+must be clean: no device fault (no retry, every breaker closed and never
+opened), no audit mismatch, no conviction; only phases 16, 18 (c) and
+(e), and 19 expect otherwise. The engine has no host failover, so no
 row of a card is ever served by the host. Before the last line, one
 ``{"kernels": [...]}`` line holds every kernel's launches, times, bound
 and build; the last line is ``{"ok": true, "device": {...}}``. With no
@@ -154,6 +190,7 @@ card, or outside the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import hashlib
@@ -163,6 +200,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -171,11 +209,12 @@ try:
     import torch
 
     from stellar_tpu_torch.crypto import ed25519_ref as ref
-    from stellar_tpu_torch.crypto import native_prep, native_verify, vectors
+    from stellar_tpu_torch.crypto import (keys, native_prep, native_verify,
+                                          tenant, vectors, verify_service)
     from stellar_tpu_torch.crypto.batch_hasher import (MAX_BLOCKS,
                                                        default_hasher)
     from stellar_tpu_torch.crypto.batch_verifier import (
-        BatchVerifier, Ed25519HotWorkload, Ed25519Workload,
+        BatchVerifier, Ed25519HotWorkload, Ed25519Workload, TrickleBatcher,
         default_verifier)
     from stellar_tpu_torch.ops import _build
     from stellar_tpu_torch.ops import sha256 as sk
@@ -305,7 +344,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 18's per-device backoff: far longer than a TxSet call (tens of
+# phase 19's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -326,6 +365,34 @@ RAISE_SLACK_S = 0.5
 PROBE_HANG_S = 2.0
 PROBE_TIMEOUT_S = 0.3
 PROBE_ANSWER_S = 0.6
+# phase 18, the verify service: (a) scp submissions of SCP_SIGS
+# signatures by VALIDATORS keys, single-signature auth submissions from
+# fresh keys, the TxSet in BULK_SUBS bulk submissions; (b) the replicas'
+# lane depth, the flooding tenant's depth quota, the arrivals and the
+# rows a bulk arrival; (c) the trickle callers, and the callers, window
+# and limit of the failing window; (e) the wedged card's deadline (the
+# spin is STALL_S, the raise limit RAISE_ONE_S) and its bulk rows
+VALIDATORS = 20
+SCP_SUBS, SCP_SIGS = 200, 3
+AUTH_SUBS = 100
+BULK_SUBS = 20
+# (a)'s steady pass: a bulk backlog of STEADY_BULK_SUBS submissions of
+# STEADY_BULK_ROWS TxSet rows (40 TxSets, about 40 full dispatches, under
+# the bulk lane's high-water mark and byte budget) queued first, then the
+# scp and auth submissions in bursts of STEADY_BURST, STEADY_GAP_S apart,
+# while it drains (bursts keep the flight recorder's ring, 4,096 records,
+# holding the whole pass)
+STEADY_BULK_SUBS, STEADY_BULK_ROWS = 160, 500
+STEADY_BURST, STEADY_GAP_S = 20, 0.04
+REPLICA_LANE_DEPTH = 64
+FLOOD_QUOTA = 16
+REPLICA_ARRIVALS = 112
+REPLICA_BULK_ROWS = 8
+TRICKLE_CALLERS = 64
+TRICKLE_FAIL_CALLERS = 16
+TRICKLE_FAIL_WINDOW_MS = 100.0
+TRICKLE_FAIL_S = 2.0
+WEDGED_BULK_ROWS = 200
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -2085,6 +2152,633 @@ def phase_probe():
     return res
 
 
+class _Gated:
+    """A verifier whose resolvers wait on ``gate`` before resolving: the
+    replicas' dispatchers hold still until every arrival is admitted."""
+
+    def __init__(self, verifier, gate):
+        self.verifier, self.gate, self.calls = verifier, gate, 0
+
+    def submit(self, items, trace_ids=None):
+        self.calls += 1
+        resolve = self.verifier.submit(items, trace_ids=trace_ids)
+
+        def resolver():
+            if not self.gate.wait(60):
+                raise RuntimeError("the replicas' gate never opened")
+            return resolve()
+        return resolver
+
+
+def _outcomes(tickets, want):
+    """Each ticket's outcome: its verdicts (checked against ``want``, the
+    oracle's rows for its items) or its Overloaded's kind, lane, reason
+    and tenant."""
+    out = []
+    for tkt, rows in tickets:
+        try:
+            got = tkt.result(timeout=60)
+        except verify_service.Overloaded as e:
+            out.append((e.kind, e.lane, e.reason, e.tenant))
+            continue
+        check(np.array_equal(got, want[rows]), f"a {tkt.lane} ticket's "
+              "verdicts differ from the oracle")
+        out.append("verified")
+    return out
+
+
+def _flight_since(name):
+    """The flight recorder's records from the last note ``name`` on
+    (``flight_recorder.note(name)``), by start; fails when the ring no
+    longer holds the note (records lost)."""
+    cap = tracing.flight_recorder.stats()["capacity"]
+    recs = tracing.flight_recorder.snapshot(limit=cap)["recent"]
+    marks = [r["start_ms"] for r in recs if r["name"] == name]
+    check(marks, f"the flight recorder's ring lost the mark {name}")
+    return sorted((r for r in recs if r["start_ms"] >= marks[-1]),
+                  key=lambda r: (r["start_ms"], r["id"]))
+
+
+def _service_trace(recs):
+    """From the flight recorder's records of one run: each submission's
+    wait, its ``service.enqueue`` event to the ``service.verdict`` event
+    that holds its first trace id, by lane (ms); and the dispatcher's
+    ``service.dispatch`` and ``service.resolve`` spans in order, each
+    with its lane, items, start (ms after the first record) and ms."""
+    t0 = recs[0]["start_ms"]
+    enq = sorted((r["attrs"]["traces"][0][0], r["start_ms"],
+                  r["attrs"]["lane"]) for r in recs
+                 if r["name"] == "service.enqueue")
+    los = [e[0] for e in enq]
+    waits = {ln: [] for ln in verify_service.LANES}
+    for r in recs:
+        if r["name"] != "service.verdict":
+            continue
+        for lo, hi in r["attrs"]["traces"]:
+            i = bisect.bisect_left(los, lo)
+            while i < len(los) and los[i] < hi:
+                waits[enq[i][2]].append(r["start_ms"] - enq[i][1])
+                i += 1
+    spans = [{"span": r["name"].rsplit(".", 1)[1],
+              "lane": r["attrs"]["lane"], "items": r["attrs"].get("items"),
+              "at_ms": round(r["start_ms"] - t0, 3), "ms": r["dur_ms"]}
+             for r in recs
+             if r["name"] in ("span.service.dispatch", "span.service.resolve")]
+    return waits, spans
+
+
+def _wait_quantiles(waits):
+    return {ln: {f"p{q}": round(float(np.percentile(w, q)), 3)
+                 for q in (50, 90, 99)} for ln, w in waits.items() if w}
+
+
+def _service_lanes(v, lanes, want, label, lead=None):
+    """One started service on ``v`` fed ``lanes`` ((lane, subs) pairs),
+    a thread a lane; with ``lead``, that lane's submissions are all
+    queued first, and the other threads then submit theirs in bursts of
+    ``STEADY_BURST``, ``STEADY_GAP_S`` apart.
+    Every verdict equals the oracle, nothing is shed, rejected or failed,
+    the conservation gap is 0, and every submission's wait is found in
+    the flight recorder. Returns the run's numbers, the flight recorder's
+    waits (ms by lane) and the dispatcher's spans."""
+    svc = verify_service.VerifyService(verifier=v).start()
+    tickets = {ln: [] for ln, _subs in lanes}
+
+    def submit(lane, subs, burst):
+        for k, rows in enumerate(subs, 1):
+            tickets[lane].append(
+                (svc.submit([want["items"][i] for i in rows], lane=lane),
+                 rows))
+            if burst and k % burst == 0:
+                time.sleep(STEADY_GAP_S)
+
+    mark = f"smoke.service.{label}"
+    k1, k2 = vk.verify_kernel.launches, vk.verify_kernel_hot.launches
+    tracing.flight_recorder.note(mark)
+    t = time.perf_counter()
+    rest = [(ln, subs) for ln, subs in lanes if ln != lead]
+    if lead is not None:
+        submit(lead, dict(lanes)[lead], 0)
+    with ThreadPoolExecutor(len(rest)) as pool:
+        for f in [pool.submit(submit, ln, subs, STEADY_BURST if lead else 0)
+                  for ln, subs in rest]:
+            f.result()
+    outcomes = {ln: _outcomes(tickets[ln], want["ok"]) for ln, _ in lanes}
+    wall_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    snap = svc.snapshot()
+    svc.stop(drain=True, timeout=30)
+    recs = _flight_since(mark)
+    waits, spans = _service_trace(recs)
+    k1 = vk.verify_kernel.launches - k1
+    k2 = vk.verify_kernel_hot.launches - k2
+    sigs = sum(len(r) for _ln, subs in lanes for r in subs)
+    tot = snap["totals"]
+    check(all(o == "verified" for os_ in outcomes.values() for o in os_),
+          f"service ({label}): a ticket was not verified")
+    check(snap["conservation_gap"] == 0 and tot["verified"] == sigs and
+          tot["shed"] == tot["rejected"] == tot["failed"] == 0,
+          f"service ({label}): totals {tot}, gap "
+          f"{snap['conservation_gap']}")
+    check(all(len(waits[ln]) == len(subs) for ln, subs in lanes) and
+          sum(sp["span"] == "dispatch" for sp in spans) == snap["batches"],
+          f"service ({label}): the flight recorder holds "
+          f"{ {ln: len(w) for ln, w in waits.items()} } waits and "
+          f"{len(spans)} dispatcher spans for {snap['batches']} dispatches")
+    check_dispatch_clean([v], f"service ({label})")
+    return {"wall_s": wall_s, "sigs": sigs, "sigs_per_s": sigs / wall_s,
+            "dispatches": snap["batches"],
+            "items_per_dispatch": sigs / snap["batches"],
+            "launches": {"verify_cold": k1, "verify_hot": k2},
+            "trace_wait_ms": _wait_quantiles(waits),
+            "recorder_records": len(recs)}, waits, spans
+
+
+def _service_mixed(dev, scp_subs, auth_subs, bulk_subs, steady_subs, want):
+    """(a): three threads submit the scp, auth and bulk lanes at once to
+    one started service on a one-card verifier, every signer a first
+    sight: every verdict equals the oracle, nothing shed, rejected or
+    failed, the conservation gap 0, and K1 and K2 launched. Then the
+    steady pass, every signer's table built: the bulk backlog
+    ``steady_subs`` queued first, scp and auth arriving in bursts while
+    it drains; the same checks, and scp's wait p99 under
+    bulk's wait p50 (the lanes' priority). Each pass's waits and the
+    dispatcher's spans are read from the flight recorder."""
+    v = BatchVerifier(device=dev, bucket_sizes=DEFAULT_BUCKET_SIZES)
+    res, _waits, spans = _service_lanes(
+        v, (("scp", scp_subs), ("auth", auth_subs), ("bulk", bulk_subs)),
+        want, "a")
+    k1, k2 = res["launches"]["verify_cold"], res["launches"]["verify_hot"]
+    check(k1 > 0 and k2 > 0, f"service (a): K1 launched {k1} and K2 {k2} "
+          "times")
+    lat = verify_service.lane_latencies()
+    sigs = res["sigs"]
+    res["lane_latency_ms"] = {ln: {q: lat[ln][f"{q}_ms"]
+                                   for q in ("p50", "p90", "p99")}
+                              for ln in verify_service.LANES}
+    res["dispatcher_spans"] = spans
+    print(f"[service] (a) mixed lanes: {sigs} sigs ({len(scp_subs)} scp x "
+          f"{SCP_SIGS}, {len(auth_subs)} auth x 1, {len(bulk_subs)} bulk x "
+          f"{len(bulk_subs[0])}) from 3 threads in {res['wall_s']:.3f} s, "
+          f"{res['sigs_per_s']:.0f} sigs/s; {res['dispatches']} dispatches, "
+          f"{res['items_per_dispatch']:.1f} items a dispatch; K1 {k1}, K2 "
+          f"{k2} launches; every verdict equal to the oracle, nothing shed, "
+          f"rejected or failed, conservation gap 0")
+    for ln in verify_service.LANES:
+        print(f"[service] (a) {ln} lane wait p50 {lat[ln]['p50_ms']} ms, "
+              f"p90 {lat[ln]['p90_ms']} ms, p99 {lat[ln]['p99_ms']} ms over "
+              f"{lat[ln]['count']} submissions (flight recorder: "
+              f"{res['trace_wait_ms'][ln]})")
+    print("[service] (a) dispatcher spans (flight recorder, s after the "
+          "first submit): " + "; ".join(
+              f"{sp['span']} {sp['lane']}"
+              + (f" {sp['items']} items" if sp["items"] else "")
+              + f" at {sp['at_ms'] / 1e3:.3f} for {sp['ms'] / 1e3:.3f}"
+              for sp in spans))
+    steady, waits, spans = _service_lanes(
+        v, (("bulk", steady_subs), ("scp", scp_subs), ("auth", auth_subs)),
+        want, "a-steady", lead="bulk")
+    q = steady["trace_wait_ms"]
+    check(q["scp"]["p99"] < q["bulk"]["p50"],
+          f"service (a, steady): scp wait p99 {q['scp']['p99']} ms is not "
+          f"under bulk's p50 {q['bulk']['p50']} ms")
+    by_lane = {}
+    for sp in spans:
+        d = by_lane.setdefault(f"{sp['span']} {sp['lane']}", [])
+        d.append(sp["ms"])
+    steady["dispatcher_ms"] = {
+        k: {"n": len(d), "sum": round(sum(d), 3),
+            "p50": round(float(np.median(d)), 3), "max": max(d)}
+        for k, d in by_lane.items()}
+    res["steady"] = steady
+    print(f"[service] (a) steady pass, every table built: {len(steady_subs)} "
+          f"bulk x {len(steady_subs[0])} queued first, then {len(scp_subs)} "
+          f"scp and {len(auth_subs)} auth submissions in bursts of "
+          f"{STEADY_BURST} {STEADY_GAP_S * 1e3:g} ms apart: {steady['sigs']} sigs in {steady['wall_s']:.3f} s, "
+          f"{steady['sigs_per_s']:.0f} sigs/s; {steady['dispatches']} "
+          f"dispatches, {steady['items_per_dispatch']:.1f} items a dispatch; "
+          f"K1 {steady['launches']['verify_cold']}, K2 "
+          f"{steady['launches']['verify_hot']} launches; every verdict equal "
+          f"to the oracle, nothing shed, rejected or failed, conservation "
+          f"gap 0; waits (flight recorder, {steady['recorder_records']} "
+          f"records) {q}: scp p99 under bulk p50; dispatcher spans ms "
+          f"{steady['dispatcher_ms']}")
+    return res
+
+
+def _replica_run(svc, gated, arrivals, want):
+    """Park the replica's dispatcher (one scp submission, its resolver
+    held by the gate), then feed the arrivals; returns the tickets and
+    the ingress refusals."""
+    park = [0]
+    tickets = [(svc.submit([want["items"][0]], lane="scp"), park)]
+    deadline = time.monotonic() + 10
+    while not (gated.calls == 1 and svc.snapshot()["lanes"]["scp"][
+            "queued_submissions"] == 0):
+        check(time.monotonic() < deadline, "service (b): a replica's "
+              "dispatcher never parked")
+        time.sleep(0.002)
+    refusals = []
+    for lane, who, rows in arrivals:
+        try:
+            tickets.append((svc.submit([want["items"][i] for i in rows],
+                                       lane=lane, tenant=who), rows))
+        except verify_service.Overloaded as e:
+            refusals.append((e.kind, e.lane, e.reason, e.tenant))
+    return tickets, refusals
+
+
+def _rebased(journal):
+    base = min(r["trace_lo"] for r in journal)
+    return [dict(r, trace_lo=r["trace_lo"] - base) for r in journal]
+
+
+def _service_replicas(dev, scp_subs, bulk_rows, want):
+    """(b): two services, each on a one-card verifier of its own, fed one
+    arrival order (a flooding tenant over its depth quota, a bulk backlog
+    past the high-water mark, scp interleaved) while their resolvers
+    wait on one event; the decision logs, journals, tenant snapshots and
+    ingress refusals are equal, every verified row equals the oracle and
+    no scp item is shed."""
+    tenant.clear_tenant_policies()
+    tenant.set_tenant_policy("flood", depth=FLOOD_QUOTA)
+    arrivals = []
+    for k in range(REPLICA_ARRIVALS):
+        who = ("flood", "flood", "alpha", "beta")[k % 4]
+        lo = (k * REPLICA_BULK_ROWS) % (len(bulk_rows) - REPLICA_BULK_ROWS)
+        arrivals.append(("bulk", who, bulk_rows[lo:lo + REPLICA_BULK_ROWS]))
+        if k % 4 == 3:
+            arrivals.append(("scp", None, scp_subs[k % len(scp_subs)]))
+    gate = threading.Event()
+    replicas = []
+    try:
+        for _ in range(2):
+            gated = _Gated(BatchVerifier(device=dev,
+                                         bucket_sizes=DEFAULT_BUCKET_SIZES),
+                           gate)
+            svc = verify_service.VerifyService(
+                verifier=gated, lane_depth=REPLICA_LANE_DEPTH,
+                pipeline_depth=1).start()
+            replicas.append((svc,) + _replica_run(svc, gated, arrivals,
+                                                  want))
+        t = time.perf_counter()
+        gate.set()
+        outs = [_outcomes(tickets, want["ok"])
+                for _svc, tickets, _r in replicas]
+        drain_s = time.perf_counter() - t
+        for svc, _t, _r in replicas:
+            svc.stop(drain=True, timeout=30)
+    finally:
+        gate.set()
+        tenant.clear_tenant_policies()
+    views = [{"decisions": svc.decision_log(),
+              "journal": _rebased(svc.journal_log()),
+              "tenants": svc.tenant_snapshot(), "refusals": refusals,
+              "outcomes": out, "snapshot": svc.snapshot()}
+             for (svc, _t, refusals), out in zip(replicas, outs)]
+    a, b = views
+    for key in ("decisions", "journal", "tenants", "refusals", "outcomes"):
+        check(a[key] == b[key], f"service (b): the replicas' {key} differ")
+    snap = a["snapshot"]
+    reasons = collections.Counter(r[2] for r in a["refusals"])
+    shed = collections.Counter((o[1], o[3]) for o in a["outcomes"]
+                               if o != "verified")
+    check(snap["conservation_gap"] == 0 and b["snapshot"][
+        "conservation_gap"] == 0, "service (b): conservation gap")
+    check(snap["lanes"]["scp"]["shed"] == 0 and
+          snap["lanes"]["bulk"]["shed"] > 0,
+          f"service (b): shed {shed} (scp must never shed, bulk must)")
+    check(reasons["tenant-depth"] > 0 and reasons["queue-depth"] > 0,
+          f"service (b): ingress refusals {dict(reasons)}")
+    res = {"arrivals": len(arrivals) + 1, "refusals": dict(reasons),
+           "shed": {f"{ln}/{who}": n for (ln, who), n in shed.items()},
+           "decisions": len(a["decisions"]), "journal_rows": len(a["journal"]),
+           "drain_s": drain_s}
+    print(f"[service] (b) replicas: {res['arrivals']} arrivals each; "
+          f"refused at ingress {dict(reasons)}; shed {res['shed']}; "
+          f"{res['decisions']} decisions and {res['journal_rows']} journal "
+          f"rows, equal between the two, as are their tenant snapshots and "
+          f"refusals; every verified row equal to the oracle; both drained "
+          f"in {drain_s:.3f} s after the gate opened")
+    return res
+
+
+def _callers(batcher, items, n):
+    """``n`` threads released together, each calling
+    ``batcher.verify_sig`` on its item once; returns each result or
+    exception with its seconds, and the threads still alive after 10 s."""
+    start = threading.Barrier(n)
+    out = [None] * n
+
+    def call(i):
+        start.wait()
+        t = time.perf_counter()
+        try:
+            r = batcher.verify_sig(*items[i])
+        except Exception as e:  # recorded and checked by the caller
+            r = e
+        out[i] = (r, time.perf_counter() - t)
+
+    threads = [threading.Thread(target=call, args=(i,), daemon=True)
+               for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(10)
+    return out, sum(th.is_alive() for th in threads)
+
+
+def _service_trickle(dev, items, ok):
+    """(c): TRICKLE_CALLERS callers through one TrickleBatcher (1 ms
+    window) on a one-card verifier, verdicts equal to the oracle in fewer
+    dispatches than callers; then a window of a second one-card verifier
+    under ``fail-device``: every parked caller gets the failure within
+    TRICKLE_FAIL_S, none hangs."""
+    v = BatchVerifier(device=dev, bucket_sizes=DEFAULT_BUCKET_SIZES)
+    tb = TrickleBatcher(v, window_ms=1.0)
+    t = time.perf_counter()
+    out, alive = _callers(tb, items, TRICKLE_CALLERS)
+    wall_s = time.perf_counter() - t
+    check(alive == 0, f"service (c): {alive} trickle callers hang")
+    got = [r for r, _s in out]
+    check(got == [bool(x) for x in ok[:TRICKLE_CALLERS]],
+          "service (c): a trickle verdict differs from the oracle")
+    check(tb.dispatches < TRICKLE_CALLERS, f"service (c): {tb.dispatches} "
+          f"dispatches for {TRICKLE_CALLERS} callers")
+    vf = BatchVerifier(device=dev, bucket_sizes=DEFAULT_BUCKET_SIZES)
+    tbf = TrickleBatcher(vf, window_ms=TRICKLE_FAIL_WINDOW_MS)
+    faults.set_fault(faults.DISPATCH, "fail-device", 0)
+    try:
+        failed, alive = _callers(tbf, items, TRICKLE_FAIL_CALLERS)
+    finally:
+        faults.clear()
+    check(alive == 0, f"service (c): {alive} callers of the failing "
+          "window hang")
+    worst = max(s for _r, s in failed)
+    check(all(isinstance(r, RuntimeError) and
+              isinstance(r.__cause__, faults.FaultInjected)
+              for r, _s in failed) and worst <= TRICKLE_FAIL_S,
+          f"service (c): the failing window's callers got "
+          f"{[type(r).__name__ for r, _s in failed]}, the last after "
+          f"{worst:.3f} s")
+    res = {"callers": TRICKLE_CALLERS, "dispatches": tb.dispatches,
+           "wall_s": wall_s, "fail_callers": TRICKLE_FAIL_CALLERS,
+           "fail_dispatches": tbf.dispatches, "fail_worst_s": worst}
+    print(f"[service] (c) trickle: {TRICKLE_CALLERS} callers in "
+          f"{tb.dispatches} dispatches ({wall_s:.3f} s), verdicts equal to "
+          f"the oracle; under fail-device all {TRICKLE_FAIL_CALLERS} callers "
+          f"of {tbf.dispatches} failing window(s) raised, the last after "
+          f"{worst:.3f} s (limit {TRICKLE_FAIL_S} s)")
+    return res
+
+
+def _service_cache(dev, items, ok):
+    """(d): ``keys.batch_verify_into_cache`` on the TxSet with a one-card
+    verifier installed, timed; then ``keys.verify_sig`` on each item: all
+    cache hits, no K1 or K2 launch, verdicts equal to the oracle; then the
+    prefetch timed again after a flush."""
+    v = BatchVerifier(device=dev, bucket_sizes=DEFAULT_BUCKET_SIZES)
+    keys.flush_verify_cache()
+    v.install()
+    try:
+        t = time.perf_counter()
+        keys.batch_verify_into_cache(items)
+        torch.cuda.synchronize()
+        prefetch_ms = (time.perf_counter() - t) * 1e3
+        before = keys.get_verify_cache_stats()
+        k1, k2 = vk.verify_kernel.launches, vk.verify_kernel_hot.launches
+        t = time.perf_counter()
+        got = [keys.verify_sig(*it) for it in items]
+        lookups_ms = (time.perf_counter() - t) * 1e3
+        after = keys.get_verify_cache_stats()
+        backend = keys.get_verifier_backend_name()
+        new = (vk.verify_kernel.launches - k1,
+               vk.verify_kernel_hot.launches - k2)
+        # the same prefetch again from an empty cache, the engine warm
+        keys.flush_verify_cache()
+        t = time.perf_counter()
+        keys.batch_verify_into_cache(items)
+        torch.cuda.synchronize()
+        again_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        keys.set_verifier_backend(None)
+        keys.flush_verify_cache()
+    check(got == [bool(x) for x in ok], "service (d): a cached verdict "
+          "differs from the oracle")
+    check(after["hits"] - before["hits"] == len(items) and
+          after["misses"] == before["misses"] and new == (0, 0),
+          f"service (d): cache {before} -> {after}, new launches {new}")
+    res = {"prefetch_ms": prefetch_ms, "prefetch_again_ms": again_ms,
+           "lookups_ms": lookups_ms, "backend": backend, "stats": after}
+    print(f"[service] (d) node cache: batch_verify_into_cache on "
+          f"{len(items)} items {prefetch_ms:.3f} ms on a new verifier "
+          f"(backend {backend}), {again_ms:.3f} ms again after a flush; "
+          f"verify_sig on each {lookups_ms:.3f} ms, {len(items)} hits, no "
+          f"K1 or K2 launch; get_verify_cache_stats() {after}")
+    return res
+
+
+def _service_defaults(items, ok, want, lane_subs):
+    """(d), the node's default paths, on the process's
+    ``default_verifier()`` (this card): ``keys.batch_verify_into_cache``
+    on the TxSet with no backend installed, then ``keys.verify_sig`` on
+    each item, all cache hits equal to the oracle; and
+    ``verify_service.default_service()`` (``VerifyService()`` with no
+    verifier, which builds ``default_verifier()`` at start) on one
+    submission a lane of ``lane_subs``, equal to the oracle. Each path's
+    K1 and K2 launches are counted; each path must launch one, and the
+    default verifier must serve rows on the card in each."""
+    dv = default_verifier()
+    keys.set_verifier_backend(None)
+    keys.flush_verify_cache()
+
+    def launched():
+        return (vk.verify_kernel.launches, vk.verify_kernel_hot.launches,
+                dv.served["device"])
+
+    try:
+        l0 = launched()
+        t = time.perf_counter()
+        keys.batch_verify_into_cache(items)
+        torch.cuda.synchronize()
+        prefetch_ms = (time.perf_counter() - t) * 1e3
+        l1 = launched()
+        before = keys.get_verify_cache_stats()
+        got = [keys.verify_sig(*it) for it in items]
+        after = keys.get_verify_cache_stats()
+        backend = keys.get_verifier_backend_name()
+    finally:
+        keys.flush_verify_cache()
+    check(got == [bool(x) for x in ok], "service (d, default): a cached "
+          "verdict differs from the oracle")
+    check(after["hits"] - before["hits"] == len(items) and
+          after["misses"] == before["misses"],
+          f"service (d, default): cache {before} -> {after}")
+    svc = verify_service.default_service()
+    try:
+        for lane, rows in lane_subs:
+            check(np.array_equal(
+                svc.verify([want["items"][i] for i in rows], lane=lane,
+                           timeout=30), want["ok"][rows]),
+                f"service (d, default): the {lane} submission differs from "
+                "the oracle")
+        torch.cuda.synchronize()
+        snap = svc.snapshot()
+    finally:
+        svc.stop(drain=True, timeout=30)
+    l2 = launched()
+    check(snap["conservation_gap"] == 0 and snap["totals"]["failed"] == 0,
+          f"service (d, default): totals {snap['totals']}")
+    cache_l = {"verify_cold": l1[0] - l0[0], "verify_hot": l1[1] - l0[1]}
+    svc_l = {"verify_cold": l2[0] - l1[0], "verify_hot": l2[1] - l1[1]}
+    check(sum(cache_l.values()) > 0 and sum(svc_l.values()) > 0 and
+          l1[2] > l0[2] and l2[2] > l1[2],
+          f"service (d, default): launches {cache_l} and {svc_l}, the "
+          f"default verifier served {l1[2] - l0[2]} and {l2[2] - l1[2]} "
+          f"rows")
+    check_dispatch_clean([dv], "service (d, default)")
+    res = {"prefetch_ms": prefetch_ms, "backend": backend,
+           "stats": after, "prefetch_launches": cache_l,
+           "service_launches": svc_l}
+    print(f"[service] (d) default paths: batch_verify_into_cache with no "
+          f"backend ({backend}) on {len(items)} items in "
+          f"{prefetch_ms:.3f} ms, launches {cache_l}, then {len(items)} "
+          f"verify_sig hits equal to the oracle; default_service() on "
+          f"{len(lane_subs)} submissions ("
+          f"{', '.join(ln for ln, _r in lane_subs)}) equal to the oracle, "
+          f"launches {svc_l}; default_verifier() served rows on the card "
+          f"in both")
+    return res
+
+
+def _service_wedged(dev, bulk, scp_sub, want):
+    """(e): the service on a one-card verifier at a DEADLINE_PHASE_MS
+    deadline, behind a STALL_S spin: the bulk ticket raises within
+    RAISE_ONE_S while the spin runs, its items count failed, the
+    conservation gap stays 0, and an scp submission after the spin
+    verifies equal to the oracle."""
+    deadline0 = batch_engine.DEADLINE_MS
+    v = BatchVerifier(device=dev, bucket_sizes=DEFAULT_BUCKET_SIZES)
+    svc = verify_service.VerifyService(verifier=v).start()
+    scp_items = [want["items"][i] for i in scp_sub]
+    try:
+        batch_engine.configure_dispatch(deadline_ms=DEADLINE_PHASE_MS)
+        check(np.array_equal(svc.verify(scp_items, lane="scp", timeout=30),
+                             want["ok"][scp_sub]), "service (e): the warm-up "
+              "differs from the oracle")
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(STALL_S * SLEEP_CYCLES_PER_S))
+        spin = torch.cuda.Event()
+        spin.record()
+        t = time.perf_counter()
+        tkt = svc.submit([want["items"][i] for i in bulk], lane="bulk")
+        try:
+            tkt.result(timeout=5 * STALL_S)
+        except RuntimeError as e:
+            raised_s = time.perf_counter() - t
+            spinning = not spin.query()
+            err = e
+        else:
+            raise PhaseFailed("service (e): the bulk ticket did not raise "
+                              "behind the spin")
+        check(raised_s <= RAISE_ONE_S and spinning,
+              f"service (e): raised after {raised_s:.3f} s (limit "
+              f"{RAISE_ONE_S} s), spin running: {spinning}")
+        check(isinstance(err.__cause__, resilience.DeadlineExceeded),
+              f"service (e): not a missed deadline: {err!r}")
+        snap = svc.snapshot()
+        check(snap["lanes"]["bulk"]["failed"] == len(bulk) and
+              snap["conservation_gap"] == 0,
+              f"service (e): bulk {snap['lanes']['bulk']}, gap "
+              f"{snap['conservation_gap']}")
+        torch.cuda.synchronize()
+        spin_end_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got = svc.verify(scp_items, lane="scp", timeout=30)
+        after_ms = (time.perf_counter() - t) * 1e3
+        check(np.array_equal(got, want["ok"][scp_sub]), "service (e): the "
+              "scp submission after the spin differs from the oracle")
+        snap = svc.snapshot()
+        check(snap["conservation_gap"] == 0, "service (e): conservation gap")
+    finally:
+        batch_engine.configure_dispatch(deadline_ms=deadline0)
+        svc.stop(drain=True, timeout=30)
+    res = {"raised_s": raised_s, "limit_s": RAISE_ONE_S,
+           "spin_end_s": spin_end_s, "failed": snap["lanes"]["bulk"]["failed"],
+           "scp_after_ms": after_ms}
+    print(f"[service] (e) wedged card: the bulk ticket ({len(bulk)} items) "
+          f"raised after {raised_s:.3f} s (limit {RAISE_ONE_S} s) with the "
+          f"{STALL_S} s spin still running (it ended {spin_end_s:.3f} s in); "
+          f"{res['failed']} items failed, conservation gap 0; the scp "
+          f"submission after the spin equal to the oracle in "
+          f"{after_ms:.3f} ms")
+    return res
+
+
+def phase_service(dev, rng, txset_items, txset_want, info):
+    """Phase 18: the resident verify service on the card, sub-phases (a)
+    to (e), the signer-table cache on. K1's and K2's launch counts are set
+    to 0 before the phase; (a) must launch both. Returns the records and
+    the launches of (a) and of the whole phase."""
+    t0 = time.perf_counter()
+    signer_table_cache._reset_for_testing()
+    signer_table_cache.configure(enabled=True)
+    validators = [vectors.keypair(rng) for _ in range(VALIDATORS)]
+    scp_items = []
+    for k in range(SCP_SUBS * SCP_SIGS):
+        seed, pk = validators[k % VALIDATORS]
+        msg = rng.bytes(32)
+        scp_items.append((pk, msg, ref.sign(seed, msg)))
+    auth_items = vectors.valid_items(rng, AUTH_SUBS)
+    corrupt(auth_items, rng, CORRUPT_SHARE)
+    items = txset_items + scp_items + auth_items
+    ok = np.concatenate([txset_want,
+                         native_verify.host_verify(scp_items + auth_items)])
+    check(ok[len(txset_items):].sum() == len(scp_items) + len(auth_items)
+          - max(1, int(AUTH_SUBS * CORRUPT_SHARE)),
+          "service: the scp and auth items do not verify as planned")
+    want = {"items": items, "ok": ok}
+    n_tx, n_scp = len(txset_items), len(scp_items)
+    scp_subs = [list(range(n_tx + k * SCP_SIGS, n_tx + (k + 1) * SCP_SIGS))
+                for k in range(SCP_SUBS)]
+    auth_subs = [[n_tx + n_scp + k] for k in range(AUTH_SUBS)]
+    per = n_tx // BULK_SUBS
+    bulk_subs = [list(range(k * per, (k + 1) * per))
+                 for k in range(BULK_SUBS)]
+    steady_subs = [[(k * STEADY_BULK_ROWS + j) % n_tx
+                    for j in range(STEADY_BULK_ROWS)]
+                   for k in range(STEADY_BULK_SUBS)]
+    gen_s = time.perf_counter() - t0
+    vk.verify_kernel.launches = 0
+    vk.verify_kernel_hot.launches = 0
+    res = {"card": info["smi"], "generate_s": gen_s}
+    try:
+        res["mixed"] = _service_mixed(dev, scp_subs, auth_subs, bulk_subs,
+                                      steady_subs, want)
+        launches_a = dict(res["mixed"]["launches"])
+        res["replicas"] = _service_replicas(dev, scp_subs,
+                                            list(range(n_tx)), want)
+        res["trickle"] = _service_trickle(dev, txset_items, txset_want)
+        res["node_cache"] = _service_cache(dev, txset_items, txset_want)
+        res["defaults"] = _service_defaults(
+            txset_items, txset_want, want,
+            (("scp", scp_subs[0]), ("auth", auth_subs[0]),
+             ("bulk", bulk_subs[0])))
+        res["wedged"] = _service_wedged(
+            dev, [i for sub in scp_subs for i in sub][:WEDGED_BULK_ROWS],
+            scp_subs[0], want)
+    finally:
+        signer_table_cache._reset_for_testing()
+    launches = {"verify_cold": vk.verify_kernel.launches,
+                "verify_hot": vk.verify_kernel_hot.launches}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[service] phase done in {res['seconds']:.1f} s (items made in "
+          f"{gen_s:.1f} s); K1 {launches['verify_cold']} and K2 "
+          f"{launches['verify_hot']} launches over the phase, "
+          f"(a) {launches_a}; card {info['smi']}")
+    return res, launches_a, launches
+
+
 def phase_faults(v, items, want):
     """The reference's device-domain scenarios on the SPLIT-index
     verifier, cache off: fail-device 1, probation healing, corrupt-device
@@ -2256,6 +2950,8 @@ def main() -> int:
     transfer_cost = phase_transfer_cost(dev, rng, txset_items, txset_want)
     deadline = phase_deadline(dev, txset_items, txset_want)
     probe = phase_probe()
+    service, service_a, service_launches = phase_service(
+        dev, rng, txset_items, txset_want, info)
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
@@ -2268,11 +2964,15 @@ def main() -> int:
                      KERNEL_BATCHES[0], info["smi"],
                      launches_hot_paths=hot_k1_launches,
                      launches_deadline_phase=deadline["launches"],
+                     launches_service=service_launches["verify_cold"],
+                     launches_service_mixed=service_a["verify_cold"],
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
                      hot_launches, hot_compared, hot_err, hot_batch,
                      KERNEL_BATCHES[0], info["smi"], block_sweep=k2_sweep,
+                     launches_service=service_launches["verify_hot"],
+                     launches_service_mixed=service_a["verify_hot"],
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -2308,7 +3008,7 @@ def main() -> int:
         "catchup_transfer": catchup["transfer"],
         "split_txset": split, "audit_cost": audit_cost,
         "transfer_cost": transfer_cost,
-        "deadline": deadline, "probe": probe,
+        "deadline": deadline, "probe": probe, "service": service,
         "fault_domains": fault_domains, "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Deterministic sampler for the result-integrity audit — the port's
-copy of ``stellar_tpu/crypto/audit.py`` (the sampler and the verdict
-record; the verify service's load-shed draw waits for the service).
+"""Deterministic sampler for the result-integrity audit and the verify
+service's load-shed draw — the port's copy of
+``stellar_tpu/crypto/audit.py``.
 
 A corrupting card returns wrong bits instead of failing, which breakers
 never see; the engine therefore re-verifies a sample of every
@@ -15,7 +15,8 @@ from __future__ import annotations
 import hashlib
 from typing import List, Optional, Sequence
 
-__all__ = ["sample_indices", "sample_rows", "verdict_record"]
+__all__ = ["sample_indices", "sample_rows", "keep_under_shed",
+           "verdict_record"]
 
 
 def sample_indices(material: bytes, n: int, rate: float) -> List[int]:
@@ -71,6 +72,38 @@ def sample_rows(material: bytes, eligible_rows: Sequence[int],
     """
     picks = sample_indices(material, len(eligible_rows), rate)
     return [eligible_rows[p] for p in picks]
+
+
+def keep_under_shed(material: bytes, keep_fraction: float,
+                    tenant: bytes = b"") -> bool:
+    """Deterministic content-seeded keep/drop draw — the verify service's
+    load-shed rule, same discipline as the audit sampler above: under
+    identical overload pressure, replicas holding the same queued work
+    shed identical rows, because the draw is SHA-256 of the work's own
+    bytes mapped uniformly into [0, 1), with no clock, RNG state or hash
+    salt. A submission's draw is fixed by its bytes, so survivors keep
+    surviving while their effective keep fraction holds; only a change
+    of the fraction (pressure level, tenant pressure) can shed a previous
+    survivor.
+
+    ``tenant`` mixes the submitting tenant's key into the draw,
+    length-prefixed so distinct (tenant, material) splits never alias:
+    each tenant gets an independent shed stream. The empty key (the
+    default, un-tenanted stream) keeps the plain draw.
+
+    Returns True to keep (verify) the work, False to shed it.
+    ``keep_fraction >= 1`` keeps everything and ``<= 0`` sheds
+    everything, without hashing."""
+    if keep_fraction >= 1.0:
+        return True
+    if keep_fraction <= 0.0:
+        return False
+    if tenant:
+        material = (len(tenant).to_bytes(2, "little") + tenant
+                    + material)
+    h = hashlib.sha256(material).digest()
+    draw = int.from_bytes(h[:8], "little") / float(1 << 64)
+    return draw < keep_fraction
 
 
 def verdict_record(device: Optional[int], lo: int, hi: int,

@@ -29,13 +29,22 @@ auto_devices`), and one card unsplit when there is one.
 
 The engine's dispatch surface is re-exported here, as from the reference
 module: :func:`configure_dispatch`, :func:`device_available`,
-:func:`start_device_probe`, :func:`dispatch_health` and
-:func:`dispatch_attribution` over the ``verify.*`` spans.
+:func:`start_device_probe`, :func:`dispatch_health`,
+:func:`dispatch_attribution` over the ``verify.*`` spans, and the verify
+service's hooks (:func:`register_service_health`,
+:func:`service_health_snapshot`, :func:`note_shed_onset`,
+:func:`dispatch_degraded`).
+
+:meth:`BatchVerifier.install` makes a verifier the backend of the port's
+node cache (:mod:`stellar_tpu_torch.crypto.keys`), optionally behind a
+:class:`TrickleBatcher`, the micro-batch window for lone verifies.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from concurrent.futures import Future
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,16 +56,19 @@ from stellar_tpu_torch.parallel import mesh, signer_tables
 from stellar_tpu_torch.parallel.batch_engine import (  # noqa: F401
     DEFAULT_BUCKET_SIZES, RESOLVE_PHASES, RESOLVE_ROOT, BatchEngine,
     Workload, configure_dispatch, device_available, dispatch_attribution,
-    dispatch_health, note_trace_event, register_default_engine,
-    start_device_probe, trace_ranges)
-from stellar_tpu_torch.utils import tracing
+    dispatch_degraded, dispatch_health, note_shed_onset, note_trace_event,
+    register_default_engine, register_service_health,
+    service_health_snapshot, start_device_probe, trace_ranges)
+from stellar_tpu_torch.utils import resilience, tracing
 from stellar_tpu_torch.utils.device import resolve_device
+from stellar_tpu_torch.utils.metrics import registry
 
 __all__ = ["BatchVerifier", "Ed25519Workload", "Ed25519HotWorkload",
-           "default_verifier", "configure_dispatch", "device_available",
-           "start_device_probe", "dispatch_health", "dispatch_attribution",
-           "note_trace_event", "trace_ranges", "RESOLVE_PHASES",
-           "RESOLVE_ROOT"]
+           "TrickleBatcher", "default_verifier", "configure_dispatch",
+           "device_available", "start_device_probe", "dispatch_health",
+           "dispatch_attribution", "dispatch_degraded", "note_shed_onset",
+           "note_trace_event", "trace_ranges", "register_service_health",
+           "service_health_snapshot", "RESOLVE_PHASES", "RESOLVE_ROOT"]
 
 # libsodium's blocklist, as a (14, 32) uint8 matrix for a vectorized compare.
 _SMALL_ORDER = np.stack([np.frombuffer(e, dtype=np.uint8)
@@ -267,9 +279,130 @@ class BatchVerifier(BatchEngine):
         return self.compute_batch(items, trace_ids=trace_ids)
 
     def verify_sig(self, pk: bytes, msg: bytes, sig: bytes) -> bool:
-        """One verification; the signature of a node's verify backend
-        (``stellar_tpu.crypto.keys.set_verifier_backend``)."""
+        """One verification, uncached; the signature of a node's verify
+        backend (:func:`stellar_tpu_torch.crypto.keys.
+        set_verifier_backend`)."""
         return bool(self.verify_batch([(pk, msg, sig)])[0])
+
+    def install(self, trickle_window_ms: Optional[float] = None
+                ) -> "BatchVerifier":
+        """Make this verifier the backend of the port's
+        :func:`stellar_tpu_torch.crypto.keys.verify_sig`, so every
+        single-signature call site asks the shared cache first, then the
+        card. ``trickle_window_ms`` puts a :class:`TrickleBatcher` in
+        front: worth it when verify callers are concurrent; in a
+        single-threaded loop it only adds the window to each miss, so it
+        stays opt-in."""
+        from stellar_tpu_torch.crypto import keys
+        if trickle_window_ms is not None:
+            batcher = TrickleBatcher(self, window_ms=trickle_window_ms)
+            keys.set_verifier_backend(batcher.verify_sig)
+        else:
+            keys.set_verifier_backend(self.verify_sig)
+        return self
+
+
+class TrickleBatcher:
+    """Micro-batch window for single-signature verifies: bulk paths batch
+    explicitly, but lone verifies (overlay auth handshakes, single SCP
+    envelopes) would each pay a whole dispatch. Concurrent arrivals
+    collect for up to ``window_ms`` (or ``max_batch`` items) and ride one
+    ``verify_batch``; the synchronous bool API is kept by parking callers
+    on futures. The first caller of a window is its leader: it waits the
+    window out, dispatches everything queued and resolves every future;
+    the others block on theirs. A leader whose dispatch fails sets the
+    failure on every parked future, so nobody hangs.
+
+    The queue is bounded (``max_pending``): a caller arriving when it is
+    full gets a typed :class:`~stellar_tpu_torch.utils.resilience.
+    Overloaded` (lane ``"trickle"``, reason ``"queue-depth"``) instead of
+    growing the pending list while a leader is stuck behind a slow
+    dispatch."""
+
+    def __init__(self, verifier: BatchVerifier, window_ms: float = 1.0,
+                 max_batch: int = 64, max_pending: int = 4096):
+        self._verifier = verifier
+        self._window = window_ms / 1000.0
+        self._max = max_batch
+        self._max_pending = max(1, int(max_pending))
+        self._cv = threading.Condition()
+        self._pending: list = []  # ((pk, msg, sig), Future)
+        self._leader_active = False
+        self._flush_asap = False
+        self.dispatches = 0  # verify_batch calls made
+        self.rejected = 0    # ingress Overloaded count
+
+    def _dispatch_batch(self, batch: list) -> None:
+        """Resolve one claimed batch through the verifier; a failure is
+        set on every parked future before it is raised."""
+        try:
+            results = self._verifier.verify_batch(
+                [item for item, _f in batch])
+        except BaseException as e:
+            for _item, f in batch:
+                f.set_exception(e)
+            raise
+        for (_item, f), ok in zip(batch, results):
+            f.set_result(bool(ok))
+
+    def verify_sig(self, pk: bytes, msg: bytes, sig: bytes) -> bool:
+        fut: Future = Future()
+        with self._cv:
+            if len(self._pending) >= self._max_pending:
+                self.rejected += 1
+                registry.counter("crypto.verify.trickle.rejected").inc()
+                raise resilience.Overloaded(
+                    f"trickle window full ({self._max_pending} pending)",
+                    kind="rejected", lane="trickle",
+                    reason="queue-depth")
+            self._pending.append(((pk, msg, sig), fut))
+            if self._leader_active:
+                if len(self._pending) >= self._max:
+                    self._cv.notify_all()  # wake the leader early
+                lead = False
+            else:
+                self._leader_active = True
+                lead = True
+        if lead:
+            deadline = time.perf_counter() + self._window
+            with self._cv:
+                while len(self._pending) < self._max and \
+                        not self._flush_asap:
+                    left = deadline - time.perf_counter()
+                    if left <= 0:
+                        break
+                    self._cv.wait(left)
+                batch = self._pending
+                self._pending = []
+                self._leader_active = False
+                self._flush_asap = False
+                # counted under the lock: the next window's leader may
+                # already run when this one dispatches
+                self.dispatches += 1
+            self._dispatch_batch(batch)
+        return fut.result()
+
+    def flush(self) -> int:
+        """Dispatch everything queued now instead of waiting the window
+        out (drain and shutdown). Every queue and leader transition
+        happens under the window lock, so an item is owned by exactly one
+        dispatcher: with a leader active it owns the pending list (flush
+        wakes it early and returns 0); otherwise flush claims the batch
+        itself, and an enqueue after the claim elects itself the next
+        leader. Returns how many items this call dispatched."""
+        with self._cv:
+            if self._leader_active:
+                self._flush_asap = True
+                self._cv.notify_all()
+                return 0
+            batch = self._pending
+            self._pending = []
+            if batch:
+                self.dispatches += 1
+        if not batch:
+            return 0
+        self._dispatch_batch(batch)
+        return len(batch)
 
 
 # Padding rows: the base point with zero scalars and R = the identity.

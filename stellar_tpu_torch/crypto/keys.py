@@ -1,0 +1,210 @@
+"""The node's verify cache and backend seam — the port's copy of the
+verify half of ``stellar_tpu/crypto/keys.py``.
+
+``verify_sig`` is the ``PubKeyUtils::verifySig`` equivalent: every
+single-signature verification funnels through it, with a 0xffff-entry
+random-eviction result cache (``crypto/SecretKey.cpp:44-48,435-468``) in
+front of a pluggable backend. The cache key is SHA-256 of
+``pk + sig + msg``.
+
+Backends:
+
+* the pure-Python libsodium-exact oracle
+  (:func:`stellar_tpu_torch.crypto.ed25519_ref.verify`; the default);
+* a card :class:`~stellar_tpu_torch.crypto.batch_verifier.BatchVerifier`,
+  installed with :meth:`~stellar_tpu_torch.crypto.batch_verifier.
+  BatchVerifier.install` (optionally behind a
+  :class:`~stellar_tpu_torch.crypto.batch_verifier.TrickleBatcher`), or
+  any ``(pk, msg, sig) -> bool`` through :func:`set_verifier_backend`.
+
+Bulk paths prefetch with :func:`batch_verify_into_cache` and then call
+``verify_sig`` row by row. With no backend installed and at least
+``MIN_DEVICE_BATCH`` rows to verify, the prefetch runs on the port's
+:func:`~stellar_tpu_torch.crypto.batch_verifier.default_verifier`, on the
+card; with no card it raises, where the reference verifies on the host
+(the port has no host failover: ROADMAP.md, divergences). Below
+``MIN_DEVICE_BATCH`` it uses what ``verify_sig`` would: the installed
+backend or the oracle.
+
+``PublicKey``, ``SecretKey``, strkey and signing are not ported yet
+(ROADMAP.md, queue 1): keys here are 32 raw bytes.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from typing import Callable, Optional
+
+from stellar_tpu_torch.crypto import ed25519_ref as _ref
+from stellar_tpu_torch.utils.cache import RandomEvictionCache
+
+__all__ = [
+    "VERIFY_CACHE_SIZE", "MIN_DEVICE_BATCH", "verify_sig",
+    "cached_verify_sig", "seed_verify_cache", "batch_verify_into_cache",
+    "seed_cache_assume_valid", "set_verifier_backend",
+    "accelerated_verify_available", "get_verifier_backend_name",
+    "get_verify_cache_stats", "flush_verify_cache",
+]
+
+VERIFY_CACHE_SIZE = 0xFFFF
+# below this, batch_verify_into_cache uses the installed backend or the
+# oracle row by row
+MIN_DEVICE_BATCH = 32
+
+_cache_lock = threading.Lock()
+_verify_cache: RandomEvictionCache = RandomEvictionCache(VERIFY_CACHE_SIZE)
+_backend: Optional[Callable[[bytes, bytes, bytes], bool]] = None
+
+
+def set_verifier_backend(fn: Optional[Callable[[bytes, bytes, bytes], bool]]):
+    """Install a verify backend ``(pk, msg, sig) -> bool``; None restores
+    the pure-Python oracle. The result cache stays in front either
+    way."""
+    global _backend
+    with _cache_lock:
+        _backend = fn
+
+
+def accelerated_verify_available() -> bool:
+    """True when bulk verification is worth collecting for: a backend is
+    installed, or the device probe says a card answers (asked without
+    waiting)."""
+    if _backend is not None:
+        return True
+    from stellar_tpu_torch.crypto import batch_verifier
+    return batch_verifier.device_available(block=False)
+
+
+def get_verifier_backend_name() -> str:
+    """Which backend serves verification now, for attributing a
+    benchmark's numbers."""
+    if _backend is None:
+        from stellar_tpu_torch.parallel import batch_engine
+        state = batch_engine._device_state  # no probe side effect
+        return f"auto(host<{MIN_DEVICE_BATCH},device-batch>=" \
+            f"{MIN_DEVICE_BATCH},device={state or 'unprobed'})"
+    self_obj = getattr(_backend, "__self__", None)
+    if self_obj is not None:
+        name = type(self_obj).__name__
+        if name == "TrickleBatcher":
+            return "device-batch+trickle"
+        if hasattr(self_obj, "verify_batch"):
+            return "device-batch"
+        return name
+    mod = getattr(_backend, "__module__", "")
+    if "ed25519_ref" in mod:
+        return "host-oracle"
+    return getattr(_backend, "__qualname__", "custom")
+
+
+def _cache_key(pk: bytes, msg: bytes, sig: bytes) -> bytes:
+    # pk and sig are checked to be 32 and 64 bytes before this is
+    # called, so the concatenation's field boundaries are unambiguous
+    return hashlib.sha256(pk + sig + msg).digest()
+
+
+def verify_sig(pk: bytes, msg: bytes, sig: bytes) -> bool:
+    """The ``PubKeyUtils::verifySig`` equivalent: the cache, then the
+    backend (the oracle when none is installed)."""
+    raw = bytes(pk)
+    if len(sig) != 64 or len(raw) != 32:
+        return False
+    key = _cache_key(raw, msg, sig)
+    with _cache_lock:
+        got = _verify_cache.maybe_get(key)
+    if got is not None:
+        return got
+    fn = _backend or _ref.verify
+    ok = bool(fn(raw, msg, sig))
+    with _cache_lock:
+        _verify_cache.put(key, ok)
+    return ok
+
+
+def cached_verify_sig(pk: bytes, msg: bytes, sig: bytes) -> Optional[bool]:
+    """Cache-only lookup of an earlier ``verify_sig`` answer (``None`` on
+    a miss). Malformed lengths answer ``False``, as ``verify_sig``
+    does."""
+    raw = bytes(pk)
+    if len(sig) != 64 or len(raw) != 32:
+        return False
+    with _cache_lock:
+        return _verify_cache.maybe_get(_cache_key(raw, msg, sig))
+
+
+def seed_verify_cache(results) -> None:
+    """Seed the result cache with decided ``(pk, msg, sig, ok)``
+    quadruples: how the verify service's verdicts keep the cache
+    consistent with the direct path."""
+    keyed = [(_cache_key(pk, msg, sig), bool(ok))
+             for pk, msg, sig, ok in results
+             if len(pk) == 32 and len(sig) == 64]
+    with _cache_lock:
+        for k, ok in keyed:
+            _verify_cache.put(k, ok)
+
+
+def batch_verify_into_cache(items) -> None:
+    """Verify ``(pk, msg, sig)`` triples in one batch and seed the result
+    cache, so later ``verify_sig`` calls for them are lookups: how bulk
+    validation (TxSet checkValid, SCP envelope floods, catchup replay)
+    rides the card. Triples already cached are skipped. At least
+    ``MIN_DEVICE_BATCH`` to verify go to the installed backend's
+    ``verify_batch`` (a scalar backend row by row), or with none to
+    :func:`~stellar_tpu_torch.crypto.batch_verifier.default_verifier`,
+    which raises when there is no card."""
+    keyed = [(_cache_key(pk, msg, sig), pk, msg, sig)
+             for pk, msg, sig in items
+             if len(pk) == 32 and len(sig) == 64]
+    with _cache_lock:
+        todo = [(k, pk, msg, sig) for k, pk, msg, sig in keyed
+                if _verify_cache.maybe_get(k) is None]
+    if not todo:
+        return
+    if len(todo) < MIN_DEVICE_BATCH:
+        # not worth a dispatch: exactly what verify_sig would use, so
+        # both paths cache the same answers
+        fn = _backend or _ref.verify
+        results = [fn(pk, msg, sig) for _, pk, msg, sig in todo]
+    elif _backend is not None:
+        if hasattr(_backend, "__self__") and \
+                hasattr(_backend.__self__, "verify_batch"):
+            results = _backend.__self__.verify_batch(
+                [(pk, msg, sig) for _, pk, msg, sig in todo])
+        else:
+            # a scalar backend: stay consistent with verify_sig
+            results = [_backend(pk, msg, sig) for _, pk, msg, sig in todo]
+    else:
+        from stellar_tpu_torch.crypto import batch_verifier
+        results = batch_verifier.default_verifier().verify_batch(
+            [(pk, msg, sig) for _, pk, msg, sig in todo])
+    with _cache_lock:
+        for (k, _, _, _), ok in zip(todo, results):
+            _verify_cache.put(k, bool(ok))
+
+
+def seed_cache_assume_valid(items) -> int:
+    """Mark ``(pk, msg, sig)`` triples valid in the cache without
+    verifying them. Only for replaying history whose results are already
+    trusted (the reference's ``CATCHUP_SKIP_KNOWN_RESULTS_FOR_TESTING``).
+    Returns how many were marked."""
+    keyed = [_cache_key(pk, msg, sig) for pk, msg, sig in items
+             if len(pk) == 32 and len(sig) == 64]
+    with _cache_lock:
+        for k in keyed:
+            _verify_cache.put(k, True)
+    return len(keyed)
+
+
+def flush_verify_cache():
+    with _cache_lock:
+        _verify_cache.clear()
+        _verify_cache.hits = 0
+        _verify_cache.misses = 0
+
+
+def get_verify_cache_stats() -> dict:
+    with _cache_lock:
+        return {"hits": _verify_cache.hits, "misses": _verify_cache.misses,
+                "size": len(_verify_cache)}

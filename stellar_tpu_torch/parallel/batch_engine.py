@@ -84,6 +84,16 @@ a freed operand's block.
 **Probe.** :func:`device_available` answers whether a card is reachable
 from a daemon probe thread with a deadline and a breaker of its own; it
 feeds :func:`dispatch_health` and sends nothing to the CPU.
+
+**Service hooks.** The resident verify service
+(:mod:`stellar_tpu_torch.crypto.verify_service`) registers its snapshot
+(:func:`register_service_health`, read back under ``dispatch_health()
+["service"]``), dumps the flight recorder on its first shed
+(:func:`note_shed_onset`) and reads :func:`dispatch_degraded` as the
+pressure input of its shed ladder. The reference answers that from its
+process-wide breaker and host-only flag, which the port has not; the
+port's answer is the probe's ``dead`` or a default ``verify`` engine with
+no device that admits work (ROADMAP.md, divergences).
 """
 
 from __future__ import annotations
@@ -113,6 +123,8 @@ __all__ = ["DEFAULT_BUCKET_SIZES", "Workload", "BatchEngine",
            "dispatch_health", "served_counts", "phase_names",
            "phase_attribution", "dispatch_attribution", "trace_ranges",
            "note_trace_event", "register_default_engine",
+           "register_service_health", "service_health_snapshot",
+           "note_shed_onset", "dispatch_degraded",
            "PHASE_SUFFIXES", "RESOLVE_PHASES", "RESOLVE_ROOT"]
 
 _log = logging.getLogger("stellar_tpu_torch.dispatch")
@@ -285,12 +297,63 @@ def served_counts() -> dict:
             for name, eng in _default_engine_items()}
 
 
+# ---------------- resident verify service hooks ----------------
+
+_service_lock = threading.Lock()
+_service_health_provider: Optional[Callable[[], dict]] = None
+
+
+def register_service_health(provider: Optional[Callable[[], dict]]
+                            ) -> None:
+    """Install the resident verify service's snapshot callable, so
+    :func:`dispatch_health` carries its queue depths and shed and reject
+    counts beside the breakers. ``None`` unregisters (tests)."""
+    global _service_health_provider
+    with _service_lock:
+        _service_health_provider = provider
+
+
+def service_health_snapshot() -> dict:
+    """The registered service's snapshot, or ``{"running": False}`` when
+    no service ever started."""
+    with _service_lock:
+        provider = _service_health_provider
+    return provider() if provider is not None else {"running": False}
+
+
+def note_shed_onset(reason: str) -> None:
+    """The service's first shed: dump the flight recorder, so the spans
+    and queue events that led into the overload can be read."""
+    registry.counter("crypto.verify.service.shed_onsets").inc()
+    tracing.flight_recorder.dump(f"service-shed:{reason}")
+
+
+def _admits_work(eng: "BatchEngine") -> bool:
+    """Does any device index of ``eng`` take a part: not convicted and
+    its breaker not open? Reads the breakers without moving them."""
+    n = len(eng._devs)
+    shut = set(eng.health.quarantined(n)) | eng.convicted
+    return not set(range(n)) <= shut
+
+
+def dispatch_degraded() -> bool:
+    """True when the card path is unavailable to new work: the probe
+    reads ``dead``, or a default ``verify`` engine has no device that
+    admits work (every breaker open or every device quarantined). The
+    verify service's shed ladder reads it as pressure level 2."""
+    if _device_state == "dead":
+        return True
+    return any(name.split(":", 1)[0] == "verify" and not _admits_work(eng)
+               for name, eng in _default_engine_items())
+
+
 def dispatch_health() -> dict:
     """The dispatch layer's state: the probe, the knobs, the process's
     deadline, retry, short-circuit and audit counts, each default
     engine's fault domains (:meth:`BatchEngine.health_snapshot`), the
     watchdog pool, the flight recorder's accounting, the transfer
-    ledger's totals and the resident cache."""
+    ledger's totals, the resident cache and the verify service's
+    snapshot."""
     return {
         "device_state": _device_state or "unprobed",
         "probe_breaker": _probe_breaker.snapshot(),
@@ -313,6 +376,7 @@ def dispatch_health() -> dict:
         "flight_recorder": tracing.flight_recorder.stats(),
         "transfer": transfer_ledger.totals(),
         "resident": residency.resident_cache.snapshot(),
+        "service": service_health_snapshot(),
     }
 
 

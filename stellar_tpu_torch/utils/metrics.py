@@ -19,10 +19,14 @@ a seeded per-timer RNG), from which ``to_dict`` and
 Every read-modify-write holds the metric's lock: metrics are written
 from watchdog workers, the probe thread and breaker callbacks at once.
 
-Left out (ROADMAP.md, queue 1 step 2): the time-series ring with its
-anomaly watcher and the SLO burn-window helpers, which serve the verify
-service's seam; ``Meter.one_minute_rate``, the reference's older name of
-``windowed_rate``.
+The SLO burn-window helpers (:func:`fresh_burn_window`,
+:func:`trim_burn_window`, :func:`push_burn_window`) hold the event-count
+sliding window that the verify service's lane monitor and the tenant
+monitor share.
+
+Left out (ROADMAP.md, queue 1): the time-series ring with its anomaly
+watcher, which serves the fleet and the ingress; ``Meter.one_minute_rate``,
+the reference's older name of ``windowed_rate``.
 """
 
 from __future__ import annotations
@@ -32,10 +36,12 @@ import random
 import re
 import threading
 import time
+from collections import deque
 from typing import Dict, List
 
 __all__ = ["Counter", "Meter", "Timer", "Gauge", "MetricsRegistry",
-           "registry", "RESERVOIR_SIZE"]
+           "registry", "RESERVOIR_SIZE", "fresh_burn_window",
+           "push_burn_window", "trim_burn_window"]
 
 # sliding window of a meter's rate, seconds (the reference's default)
 WINDOW_SECONDS = 300.0
@@ -43,6 +49,33 @@ WINDOW_SECONDS = 300.0
 # reservoir sample size of a timer's percentiles; read at update time,
 # so a change before traffic starts sizes every timer
 RESERVOIR_SIZE = 512
+
+
+# ---------------- SLO burn-window helpers ----------------
+# One implementation of the event-count sliding window of an error
+# budget (a deque of 0/1 and running bad/total counters), shared by the
+# verify service's per-lane SloMonitor and the per-tenant
+# TenantSloMonitor. Pure functions of the dict: the owning monitor holds
+# its lock around every call.
+
+
+def fresh_burn_window() -> dict:
+    return {"events": deque(), "bad": 0, "total": 0, "bad_total": 0}
+
+
+def trim_burn_window(st: dict, window: int) -> None:
+    while len(st["events"]) > window:
+        st["bad"] -= st["events"].popleft()
+
+
+def push_burn_window(st: dict, bad: bool, n: int, window: int) -> None:
+    flag = 1 if bad else 0
+    for _ in range(n):
+        st["events"].append(flag)
+    st["bad"] += flag * n
+    st["total"] += n
+    st["bad_total"] += flag * n
+    trim_burn_window(st, window)
 
 
 def _interp_percentile(data: List[float], q: float) -> float:

@@ -14,9 +14,8 @@ the port's copy of ``stellar_tpu/utils/resilience.py``.
   :func:`call_with_deadline`. A guarded call is a queue hand-off to an
   idle worker; a worker parked in a hung call is simply missing from the
   idle set, and the next call gets a fresh one.
-
-``Overloaded`` belongs to the verify service, which the port does not
-have yet (ROADMAP.md).
+* :class:`Overloaded`: the typed admission verdict of the verify service
+  and the trickle batcher, work refused at ingress or shed under load.
 """
 
 from __future__ import annotations
@@ -30,8 +29,8 @@ from typing import Callable, Optional
 from stellar_tpu_torch.utils import tracing
 
 __all__ = ["CLOSED", "OPEN", "HALF_OPEN", "CircuitBreaker", "Deadline",
-           "DeadlineExceeded", "WatchdogPool", "call_with_deadline",
-           "watchdog_stats"]
+           "DeadlineExceeded", "Overloaded", "WatchdogPool",
+           "call_with_deadline", "watchdog_stats"]
 
 CLOSED = "closed"
 OPEN = "open"
@@ -40,6 +39,38 @@ HALF_OPEN = "half-open"
 
 class DeadlineExceeded(Exception):
     """A guarded call did not finish within its budget."""
+
+
+class Overloaded(RuntimeError):
+    """Typed admission-control verdict: the system chose to refuse or
+    drop work rather than buffer it without bound. Two kinds:
+
+    * ``kind="rejected"``: refused at ingress (queue depth or byte
+      budget exceeded, or the service is stopping); the work never
+      entered a queue;
+    * ``kind="shed"``: admitted, then dropped by the deterministic
+      load-shed ladder under overload; the caller learns it from this
+      exception on its ticket, never by silence.
+
+    ``lane`` names the priority lane (``"trickle"`` for the micro-batch
+    window), ``reason`` the budget that tripped (``"queue-depth"``,
+    ``"bytes"``, ``"tenant-depth"``, ``"tenant-bytes"``, ``"backlog"``,
+    ...), ``tenant`` the submitting tenant when the verdict was
+    tenant-scoped, ``replica`` the refusing service's fleet identity
+    (None for a single service), and ``trace_ids`` the refused or shed
+    items' trace IDs."""
+
+    def __init__(self, message: str, *, kind: str = "rejected",
+                 lane: Optional[str] = None, reason: str = "",
+                 tenant: Optional[str] = None, trace_ids=None,
+                 replica: Optional[int] = None):
+        super().__init__(message)
+        self.kind = kind
+        self.lane = lane
+        self.reason = reason
+        self.tenant = tenant
+        self.trace_ids = trace_ids if trace_ids is not None else ()
+        self.replica = replica
 
 
 class Deadline:

@@ -419,16 +419,17 @@ def test_failed_probe_is_reprobed_when_the_breaker_allows():
 # keys whose meaning the port shares with the reference's dispatch_health
 SHARED_KEYS = {"device_state", "deadline_ms", "dispatch_retries",
                "deadline_misses", "retries", "short_circuits", "audit",
-               "watchdog", "flight_recorder", "transfer", "resident"}
+               "watchdog", "flight_recorder", "transfer", "resident",
+               "service"}
 # the reference's process-wide breaker gates dispatch; the port's paces
 # only the probe, and each engine keeps its own breakers and tallies
 PORT_ONLY = {"probe_breaker", "engines"}
 # no host failover, no host-only mode; no donation (the caching allocator
-# reuses a freed operand's block); the service and the fleet are not
-# ported; the signer-table cache reports through its own snapshot
+# reuses a freed operand's block); the fleet is not ported; the
+# signer-table cache reports through its own snapshot
 REFERENCE_ONLY = {"breaker", "served", "fallback_chunks", "host_only",
                   "device_health", "signer_tables", "donate_buffers",
-                  "service", "fleet"}
+                  "fleet"}
 # the reference engine's counters with no counterpart in the port: no
 # coalesced sharded upload (one copy an operand a part on its device's
 # stream) and no donated dispatch

@@ -33,8 +33,12 @@ def test_forbidden_imports_absent():
     files = _port_sources()
     assert len(files) > 10 and all(os.path.exists(f) for f in files)
     for module in ("metrics", "tracing", "timeline", "resilience",
-                   "faults", "transfer_ledger"):
+                   "faults", "transfer_ledger", "cache"):
         assert os.path.join(ROOT, "stellar_tpu_torch", "utils",
+                            f"{module}.py") in files
+    for module in ("verify_service", "tenant", "controller", "keys",
+                   "audit", "batch_verifier"):
+        assert os.path.join(ROOT, "stellar_tpu_torch", "crypto",
                             f"{module}.py") in files
     assert os.path.join(ROOT, "stellar_tpu_torch", "parallel",
                         "residency.py") in files
@@ -51,8 +55,10 @@ def test_import_and_verify_with_jax_blocked():
     the three items again over a verifier split across two indices,
     hashes forty messages, attributes a traced blocking call, reads the
     transfer ledger, the resident cache, the Prometheus text and the
-    Chrome trace, and raises from a deadline-guarded call under a
-    ``hang`` fault."""
+    Chrome trace, raises from a deadline-guarded call under a ``hang``
+    fault, verifies the three items through a ``VerifyService`` over a
+    CPU verifier on each lane and through a ``TrickleBatcher``, and reads
+    the service in ``dispatch_health()``."""
     code = "\n".join([
         "import sys, hashlib",
         "sys.modules['jax'] = None",
@@ -120,6 +126,22 @@ def test_import_and_verify_with_jax_blocked():
         "assert v3.deadline_misses == 1",
         "assert 'watchdog-timeout:device0' in "
         "tracing.flight_recorder.stats()['dump_reasons']",
+        "be.configure_dispatch(deadline_ms=8000)",
+        "from stellar_tpu_torch.crypto import verify_service as vs",
+        "from stellar_tpu_torch.crypto.batch_verifier import "
+        "TrickleBatcher",
+        "v4 = BatchVerifier(device='cpu', bucket_sizes=(4,))",
+        "svc = vs.VerifyService(verifier=v4).start()",
+        "for lane in vs.LANES:",
+        "    assert svc.verify(items, lane=lane, timeout=120).tolist() "
+        "== [True, False, True], lane",
+        "tb = TrickleBatcher(v4)",
+        "assert [tb.verify_sig(*it) for it in items] == "
+        "[True, False, True]",
+        "s = be.dispatch_health()['service']",
+        "assert s['running'] and s['conservation_gap'] == 0, s",
+        "assert s['totals']['verified'] == 9, s['totals']",
+        "svc.stop()",
         "assert not any(m == 'jax' or m.startswith('jax.') or m == "
         "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
         "sys.modules if sys.modules[m] is not None)",
