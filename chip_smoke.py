@@ -165,7 +165,35 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    behind a 2.5 s spin at a 200 ms deadline: the bulk ticket raises
    within 1.0 s, its items count failed, the conservation gap stays 0,
    and an scp submission after the spin equals the oracle;
-19. fault domains, last — on the 4-index verifier: ``fail-device`` on
+19. the fleet and the wire on the card — a one-card verifier of its own,
+   the signer-table cache on, phase 18's arrivals: one replica's first
+   dispatch of 100 bulk rows with the cache empty timed apart, then one
+   untimed call that builds every signer's table; (a) a started
+   ``FleetRouter`` of 3 replicas over the verifier (one
+   ``SharedVerifier``), three threads submitting the scp, auth and bulk
+   lanes at once (bulk over 8 tenants), then a bulk backlog of 40
+   submissions of 500 TxSet rows, and the replica holding the most queued
+   bulk rows killed while they are queued: items handed off, every
+   ticket equal to the oracle, the fleet's conservation gap 0 at every
+   10 ms poll and after, the dead replica in ``dispatch_health()
+   ["fleet"]``, no conviction, a router built apart routing a grid of
+   (lane, tenant) keys alike, the handed-off traces stitched seamless;
+   wall time, signatures a second, items handed off, each lane's wait
+   p50 and p99 from the flight recorder, and each replica's and lane's
+   wait on the shared engine's lock (from its dispatch span to the
+   engine's first span inside it); (b) an ``IngressServer`` over
+   that fleet, five ``WireClient`` s on loopback, each on its own thread
+   (four send a quarter of the TxSet as 5 submissions of 100, one of them
+   with ``torn-frame`` on its sends; one sends the scp submissions):
+   every verdict equal to the oracle, the wire's gap 0; then a client
+   under ``disconnect-mid-batch`` beside a clean one: killed with the
+   typed reason, the clean one served, the gap 0; after ``stop()``
+   nothing pending; signatures a second, frames, bytes and the client
+   side p50 and p99 of a submission; (c) the journal of the drained fleet
+   and ingress: the completeness law exact, two collects merged without
+   divergence, every wire trace stitched wire -> route -> enqueue ->
+   terminal; K1 and K2 must launch in (a) and in (b);
+20. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -178,10 +206,11 @@ just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
 7-8, K3 over phase 10's calls, K5 over phase 11's sweep calls, K4 over
 phase 12's calls, K1 and K2 again over phase 13, K1 over phase 16, K1
 and K2 over phase 18 (``launches_service``; (a) alone
-``launches_service_mixed``). After every main-path phase the dispatch
-must be clean: no device fault (no retry, every breaker closed and never
-opened), no audit mismatch, no conviction; only phases 16, 18 (c) and
-(e), and 19 expect otherwise. The engine has no host failover, so no
+``launches_service_mixed``), K1 and K2 over phase 19 (a) and (b)
+(``launches_fleet``, ``launches_wire``). After every main-path phase the
+dispatch must be clean: no device fault (no retry, every breaker closed
+and never opened), no audit mismatch, no conviction; only phases 16, 18
+(c) and (e), and 20 expect otherwise. The engine has no host failover, so no
 row of a card is ever served by the host. Before the last line, one
 ``{"kernels": [...]}`` line holds every kernel's launches, times, bound
 and build; the last line is ``{"ok": true, "device": {...}}``. With no
@@ -209,8 +238,9 @@ try:
     import torch
 
     from stellar_tpu_torch.crypto import ed25519_ref as ref
-    from stellar_tpu_torch.crypto import (keys, native_prep, native_verify,
-                                          tenant, vectors, verify_service)
+    from stellar_tpu_torch.crypto import (fleet, ingress, keys, native_prep,
+                                          native_verify, tenant, vectors,
+                                          verify_service)
     from stellar_tpu_torch.crypto.batch_hasher import (MAX_BLOCKS,
                                                        default_hasher)
     from stellar_tpu_torch.crypto.batch_verifier import (
@@ -223,7 +253,8 @@ try:
     from stellar_tpu_torch.parallel.batch_engine import DEFAULT_BUCKET_SIZES
     from stellar_tpu_torch.parallel.signer_tables import (
         TABLE_ENTRIES, build_signer_table, signer_table_cache)
-    from stellar_tpu_torch.utils import faults, resilience, tracing
+    from stellar_tpu_torch.utils import (faults, journal, resilience,
+                                         tracing)
     from stellar_tpu_torch.utils.device import resolve_device
     from stellar_tpu_torch.utils.metrics import registry
     from stellar_tpu_torch.utils.timeline import pipeline_timeline
@@ -344,7 +375,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 19's per-device backoff: far longer than a TxSet call (tens of
+# phase 20's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -393,6 +424,18 @@ TRICKLE_FAIL_CALLERS = 16
 TRICKLE_FAIL_WINDOW_MS = 100.0
 TRICKLE_FAIL_S = 2.0
 WEDGED_BULK_ROWS = 200
+# phase 19, the fleet and the wire: (a) FLEET_REPLICAS replicas, phase
+# 18's scp and auth submissions and the TxSet in BULK_SUBS submissions
+# over FLEET_TENANTS tenants, then a bulk backlog of FLEET_BACKLOG_SUBS
+# submissions of FLEET_BACKLOG_ROWS TxSet rows, one replica killed while
+# it is queued; (b) WIRE_CLIENTS clients on loopback, each sending a
+# quarter of the TxSet in WIRE_SUBS submissions, and one the scp
+# submissions; the fleet's gap polled every GAP_POLL_S during (a)
+FLEET_REPLICAS = 3
+FLEET_TENANTS = 8
+FLEET_BACKLOG_SUBS, FLEET_BACKLOG_ROWS = 40, 500
+WIRE_CLIENTS, WIRE_SUBS = 4, 5
+GAP_POLL_S = 0.01
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -2715,14 +2758,12 @@ def _service_wedged(dev, bulk, scp_sub, want):
     return res
 
 
-def phase_service(dev, rng, txset_items, txset_want, info):
-    """Phase 18: the resident verify service on the card, sub-phases (a)
-    to (e), the signer-table cache on. K1's and K2's launch counts are set
-    to 0 before the phase; (a) must launch both. Returns the records and
-    the launches of (a) and of the whole phase."""
-    t0 = time.perf_counter()
-    signer_table_cache._reset_for_testing()
-    signer_table_cache.configure(enabled=True)
+def service_items(rng, txset_items, txset_want):
+    """Phase 18's and 19's arrivals: SCP_SUBS scp submissions of SCP_SIGS
+    signatures by VALIDATORS keys, AUTH_SUBS single signatures from fresh
+    keys (2% corrupted) and the TxSet in BULK_SUBS bulk submissions, as
+    index lists into ``want["items"]``, whose oracle bits are
+    ``want["ok"]``."""
     validators = [vectors.keypair(rng) for _ in range(VALIDATORS)]
     scp_items = []
     for k in range(SCP_SUBS * SCP_SIGS):
@@ -2737,14 +2778,29 @@ def phase_service(dev, rng, txset_items, txset_want, info):
     check(ok[len(txset_items):].sum() == len(scp_items) + len(auth_items)
           - max(1, int(AUTH_SUBS * CORRUPT_SHARE)),
           "service: the scp and auth items do not verify as planned")
-    want = {"items": items, "ok": ok}
     n_tx, n_scp = len(txset_items), len(scp_items)
-    scp_subs = [list(range(n_tx + k * SCP_SIGS, n_tx + (k + 1) * SCP_SIGS))
-                for k in range(SCP_SUBS)]
-    auth_subs = [[n_tx + n_scp + k] for k in range(AUTH_SUBS)]
     per = n_tx // BULK_SUBS
-    bulk_subs = [list(range(k * per, (k + 1) * per))
-                 for k in range(BULK_SUBS)]
+    return {"items": items, "ok": ok,
+            "scp": [list(range(n_tx + k * SCP_SIGS,
+                               n_tx + (k + 1) * SCP_SIGS))
+                    for k in range(SCP_SUBS)],
+            "auth": [[n_tx + n_scp + k] for k in range(AUTH_SUBS)],
+            "bulk": [list(range(k * per, (k + 1) * per))
+                     for k in range(BULK_SUBS)]}
+
+
+def phase_service(dev, rng, txset_items, txset_want, info):
+    """Phase 18: the resident verify service on the card, sub-phases (a)
+    to (e), the signer-table cache on. K1's and K2's launch counts are set
+    to 0 before the phase; (a) must launch both. Returns the records, the
+    launches of (a) and of the whole phase, and the arrivals
+    (:func:`service_items`)."""
+    t0 = time.perf_counter()
+    signer_table_cache._reset_for_testing()
+    signer_table_cache.configure(enabled=True)
+    want = service_items(rng, txset_items, txset_want)
+    scp_subs, auth_subs, bulk_subs = want["scp"], want["auth"], want["bulk"]
+    n_tx = len(txset_items)
     steady_subs = [[(k * STEADY_BULK_ROWS + j) % n_tx
                     for j in range(STEADY_BULK_ROWS)]
                    for k in range(STEADY_BULK_SUBS)]
@@ -2776,7 +2832,430 @@ def phase_service(dev, rng, txset_items, txset_want, info):
           f"{gen_s:.1f} s); K1 {launches['verify_cold']} and K2 "
           f"{launches['verify_hot']} launches over the phase, "
           f"(a) {launches_a}; card {info['smi']}")
-    return res, launches_a, launches
+    return res, launches_a, launches, want
+
+
+def _fleet_waits(recs):
+    """Each submission's wait in one fleet run, by lane (ms): from the
+    first ``service.enqueue`` event of its trace block (the arrival, not a
+    handoff's re-admission) to the ``service.verdict`` event that holds
+    it."""
+    first = {}
+    for r in recs:
+        if r["name"] == "service.enqueue":
+            lo = r["attrs"]["traces"][0][0]
+            first.setdefault(lo, (r["start_ms"], r["attrs"]["lane"]))
+    los = sorted(first)
+    waits = {ln: [] for ln in verify_service.LANES}
+    for r in recs:
+        if r["name"] != "service.verdict":
+            continue
+        for lo, hi in r["attrs"]["traces"]:
+            i = bisect.bisect_left(los, lo)
+            while i < len(los) and los[i] < hi:
+                t, ln = first[los[i]]
+                waits[ln].append(r["start_ms"] - t)
+                i += 1
+    return waits
+
+
+def _block_ends(tickets):
+    """The first and last trace ID of each ticket's block. Every record
+    the stitch reads (``ingress.frame``, ``fleet.route``,
+    ``service.enqueue``, ``service.handoff``, ``service.verdict``) holds a
+    submission's block whole, so its two ends stitch as every ID between
+    them does; ``trace_timeline`` scans the whole ring for each ID."""
+    return sorted({i for t in tickets
+                   for i in (t.trace_lo, t.trace_lo + t.n_items - 1)})
+
+
+def _route_grid():
+    return [(ln, f"t{k}") for ln in verify_service.LANES
+            for k in range(FLEET_TENANTS)] + \
+        [(ln, None) for ln in verify_service.LANES]
+
+
+def _fleet_run(v, want):
+    """(a): a started fleet of FLEET_REPLICAS replicas over ``v``, three
+    threads submitting phase 18's scp, auth and bulk arrivals at once
+    (bulk over FLEET_TENANTS tenants), then the bulk backlog, and one
+    replica holding queued bulk work killed while it is queued. Every
+    ticket, the handed-off ones too, equals the oracle; the fleet's gap
+    is 0 at every poll and after; the dead replica shows in
+    ``dispatch_health()["fleet"]``; no replica is convicted; a router
+    built apart routes the grid alike. Returns the fleet (still running)
+    and the run's numbers."""
+    fl = fleet.FleetRouter(verifier=v, replicas=FLEET_REPLICAS).start()
+    n_tx = len(want["bulk"]) * len(want["bulk"][0])
+    backlog = [[(k * FLEET_BACKLOG_ROWS + j) % n_tx
+                for j in range(FLEET_BACKLOG_ROWS)]
+               for k in range(FLEET_BACKLOG_SUBS)]
+    lanes = (("scp", want["scp"]), ("auth", want["auth"]),
+             ("bulk", want["bulk"]))
+    tickets = {ln: [] for ln in verify_service.LANES}
+    gaps, stop_poll = [], threading.Event()
+
+    def submit(lane, subs):
+        for k, rows in enumerate(subs):
+            tenant = f"t{k % FLEET_TENANTS}" if lane == "bulk" else None
+            tickets[lane].append((fl.submit(
+                [want["items"][i] for i in rows], lane=lane, tenant=tenant),
+                rows))
+
+    def poll():
+        while not stop_poll.is_set():
+            gaps.append(fl.snapshot()["conservation_gap"])
+            time.sleep(GAP_POLL_S)
+
+    grid = _route_grid()
+    routes_before = [fl.route_of(*k) for k in grid]
+    mark = "smoke.fleet.a"
+    tracing.flight_recorder.note(mark)
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(lanes)) as pool:
+        for f in [pool.submit(submit, ln, subs) for ln, subs in lanes]:
+            f.result()
+    submit("bulk", backlog)
+    queued = [svc.snapshot()["lanes"]["bulk"]["queued_items"]
+              for svc in fl.services()]
+    victim = int(np.argmax(queued))
+    check(queued[victim] > 0, f"fleet: no replica holds queued bulk work "
+          f"when the backlog is in ({queued})")
+    moved = fl.kill_replica(victim, stop_timeout=60)
+    outcomes = {ln: _outcomes(tickets[ln], want["ok"])
+                for ln in verify_service.LANES}
+    wall_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    stop_poll.set()
+    poller.join(5)
+    snap = fl.snapshot()
+    health = batch_engine.dispatch_health()["fleet"]
+    convicted = fl.divergence_check()
+    other = fleet.FleetRouter(services=[
+        verify_service.VerifyService() for _ in range(FLEET_REPLICAS)])
+    routes_apart = [other.route_of(*k) for k in grid]
+    other.kill_replica(victim)
+    check(routes_apart == routes_before and
+          [other.route_of(*k) for k in grid] ==
+          [fl.route_of(*k) for k in grid],
+          "fleet: a router built apart routes the grid differently")
+    check(len(set(routes_before)) == FLEET_REPLICAS,
+          f"fleet: the grid reaches only replicas {set(routes_before)}")
+    check(all(o == "verified" for os_ in outcomes.values() for o in os_),
+          "fleet: a ticket was not verified")
+    check(moved > 0 and snap["handoffs"] == moved,
+          f"fleet: {moved} items handed off, snapshot {snap['handoffs']}")
+    check(all(g == 0 for g in gaps) and snap["conservation_gap"] == 0,
+          f"fleet: conservation gap {snap['conservation_gap']} after the "
+          f"run, nonzero at {sum(g != 0 for g in gaps)} of {len(gaps)} "
+          f"polls")
+    check(health["states"][victim] == "dead" and
+          health["states"].count("active") == FLEET_REPLICAS - 1,
+          f"fleet: dispatch_health()['fleet'] states {health['states']}")
+    check(convicted == [] and snap["divergence_convictions"] == 0,
+          f"fleet: an honest replica was convicted: {convicted}, "
+          f"{snap['conviction_log']}")
+    recs = _flight_since(mark)
+    waits = _fleet_waits(recs)
+    sigs = sum(len(r) for _ln, subs in lanes for r in subs) + \
+        FLEET_BACKLOG_SUBS * FLEET_BACKLOG_ROWS
+    check(all(len(waits[ln]) == len(tickets[ln])
+              for ln in verify_service.LANES),
+          f"fleet: the flight recorder holds "
+          f"{ {ln: len(w) for ln, w in waits.items()} } waits for "
+          f"{ {ln: len(tk) for ln, tk in tickets.items()} } submissions")
+    handoff_los = {lo for r in recs if r["name"] == "service.handoff"
+                   for lo, _hi in r["attrs"]["traces"]}
+    handed = [t for ln in verify_service.LANES for t, _rows in tickets[ln]
+              if t.trace_lo in handoff_los]
+    handed_ids = _block_ends(handed)
+    frac = journal.stitch_fraction(
+        handed_ids, tracing.flight_recorder,
+        require=("route", "enqueue", "terminal"))
+    check(handed and frac == 1.0, f"fleet: {len(handed)} handed-off "
+          f"submissions found, their stitch fraction {frac}")
+    res = {"wall_s": wall_s, "sigs": sigs, "sigs_per_s": sigs / wall_s,
+           "handed_off_items": moved, "handed_off_submissions": len(handed),
+           "handed_off_stitch_fraction": frac, "victim": victim,
+           "queued_bulk_at_kill": queued, "gap_polls": len(gaps),
+           "routes": snap["routes"],
+           "routed_items": [r["routed_items"] for r in snap["per_replica"]],
+           "dispatches": [s.snapshot()["batches"] for s in fl.services()],
+           "trace_wait_ms": _wait_quantiles(waits),
+           "lock_waits": _lock_waits(recs),
+           "recorder_records": len(recs)}
+    print(f"[fleet] (a) {FLEET_REPLICAS} replicas over one card: {sigs} sigs "
+          f"({len(want['scp'])} scp x {SCP_SIGS}, {len(want['auth'])} auth "
+          f"x 1, {len(want['bulk'])} bulk x {len(want['bulk'][0])} over "
+          f"{FLEET_TENANTS} tenants from 3 threads, then {FLEET_BACKLOG_SUBS} "
+          f"bulk x {FLEET_BACKLOG_ROWS}) in {wall_s:.3f} s, "
+          f"{res['sigs_per_s']:.0f} sigs/s; replica {victim} killed with "
+          f"{queued[victim]} bulk items queued: {moved} items handed off; "
+          f"every verdict equal to the oracle; conservation gap 0 at "
+          f"{len(gaps)} polls and after; routed items a replica "
+          f"{res['routed_items']}, dispatches {res['dispatches']}; no "
+          f"conviction; a router built apart routes alike; handed-off "
+          f"traces stitch {frac}")
+    for ln in verify_service.LANES:
+        q = res["trace_wait_ms"].get(ln, {})
+        print(f"[fleet] (a) {ln} lane wait p50 {q.get('p50')} ms, p99 "
+              f"{q.get('p99')} ms over {len(waits[ln])} submissions "
+              f"(flight recorder, {len(recs)} records)")
+    for by, rows in res["lock_waits"].items():
+        for k, d in sorted(rows.items()):
+            print(f"[fleet] (a) the shared engine's lock, {by} {k}: "
+                  f"{d['dispatches']} dispatches, {d['dispatch_ms']} ms, of "
+                  f"it {d['lock_wait_ms']} ms waiting on the lock (share "
+                  f"{d['share']}, largest wait {d['max_wait_ms']} ms)")
+    return fl, res
+
+
+def _lock_waits(recs):
+    """The shared engine's lock wait in one fleet run, from the flight
+    recorder: a replica's ``service.dispatch`` span runs from before
+    ``SharedVerifier.submit`` takes the lock to after the engine's submit,
+    whose first child span (the partition's ``verify.prep``) opens as soon
+    as the lock is held; the time between is the wait. By dispatcher
+    thread and by lane: dispatches, their ms, the wait's ms and its share,
+    and the largest wait."""
+    first_child = {}
+    for r in recs:
+        if r.get("parent") is not None and r.get("dur_ms") is not None:
+            at = first_child.get(r["parent"])
+            if at is None or r["start_ms"] < at:
+                first_child[r["parent"]] = r["start_ms"]
+    out = {"thread": {}, "lane": {}}
+    for r in recs:
+        if r["name"] != "span.service.dispatch" or r.get("dur_ms") is None \
+                or r["id"] not in first_child:
+            continue
+        wait = first_child[r["id"]] - r["start_ms"]
+        for key, k in (("thread", r["thread"]), ("lane", r["attrs"]["lane"])):
+            d = out[key].setdefault(k, {"dispatches": 0, "dispatch_ms": 0.0,
+                                        "lock_wait_ms": 0.0,
+                                        "max_wait_ms": 0.0})
+            d["dispatches"] += 1
+            d["dispatch_ms"] += r["dur_ms"]
+            d["lock_wait_ms"] += wait
+            d["max_wait_ms"] = max(d["max_wait_ms"], wait)
+    for by in out.values():
+        for d in by.values():
+            d["share"] = d["lock_wait_ms"] / max(d["dispatch_ms"], 1e-9)
+            for k in ("dispatch_ms", "lock_wait_ms", "max_wait_ms", "share"):
+                d[k] = round(d[k], 4)
+    return out
+
+
+def _wire_client(port, subs, want, lane, tenants, fault_point=None):
+    """One client thread's work: ``subs`` sent on its own connection, the
+    verdicts read back in order and checked against the oracle; returns
+    its tickets and each submission's latency as the client sees it, from
+    its submit to the return of its ``result()`` (ms; a verdict that came
+    early waits for the reads before it)."""
+    cli = ingress.WireClient("127.0.0.1", port, timeout=120,
+                             fault_point=fault_point)
+    sent, lat = [], []
+    try:
+        for k, rows in enumerate(subs):
+            t0 = time.perf_counter()
+            tkt = cli.submit([want["items"][i] for i in rows], lane=lane,
+                             tenant=tenants[k % len(tenants)])
+            sent.append((tkt, rows, t0))
+        for tkt, rows, t0 in sent:
+            got = tkt.result(timeout=120)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(got, want["ok"][rows]),
+                  f"wire: a {lane} ticket's verdicts differ from the oracle")
+    finally:
+        cli.close()
+    return [(tkt, rows) for tkt, rows, _t0 in sent], lat
+
+
+def _wire_run(fl, want):
+    """(b): an ``IngressServer`` over the fleet of (a); WIRE_CLIENTS
+    clients each send a quarter of the TxSet, one of them with
+    ``torn-frame`` on its sends, and one client the scp submissions, each
+    on its own thread: every verdict equals the oracle and the wire's gap
+    is 0. Then a client under ``disconnect-mid-batch`` while a clean one
+    is served: its connection is killed with the typed reason and the gap
+    stays 0. After ``stop()`` every admitted ticket reached a terminal.
+    Returns the server (stopped), the numbers and the tickets."""
+    srv = ingress.IngressServer(fl, "127.0.0.1", 0).start()
+    n_tx = len(want["bulk"]) * len(want["bulk"][0])
+    quarter = n_tx // WIRE_CLIENTS
+    per = quarter // WIRE_SUBS
+    clients = [([list(range(c * quarter + k * per,
+                            c * quarter + (k + 1) * per))
+                 for k in range(WIRE_SUBS)], "bulk",
+                [f"t{(c * WIRE_SUBS + k) % FLEET_TENANTS}"
+                 for k in range(WIRE_SUBS)],
+                "wire.client.torn" if c == 0 else None)
+               for c in range(WIRE_CLIENTS)]
+    clients.append((want["scp"], "scp", [None], None))
+    faults.set_fault("wire.client.torn", "torn-frame")
+    try:
+        t = time.perf_counter()
+        with ThreadPoolExecutor(len(clients)) as pool:
+            runs = [f.result() for f in [
+                pool.submit(_wire_client, srv.port, subs, want, lane,
+                            tenants, fp)
+                for subs, lane, tenants, fp in clients]]
+        wall_s = time.perf_counter() - t
+        torn_fired = faults.counters()["wire.client.torn"]["fired"]
+    finally:
+        faults.clear("wire.client.torn")
+    snap = srv.snapshot()
+    check(snap["conservation_gap"] == 0 and snap["malformed_frames"] == 0,
+          f"wire: gap {snap['conservation_gap']}, malformed "
+          f"{snap['malformed_reasons']}")
+    check(torn_fired == WIRE_SUBS, f"wire: torn-frame fired {torn_fired} "
+          f"times for {WIRE_SUBS} sends")
+    # a connection cut mid-frame while a clean client is served
+    faults.set_fault("wire.client.cut", "disconnect-mid-batch")
+    try:
+        cut = ingress.WireClient("127.0.0.1", srv.port, timeout=120,
+                                 fault_point="wire.client.cut")
+        with ThreadPoolExecutor(1) as pool:
+            clean = pool.submit(_wire_client, srv.port, clients[1][0], want,
+                                "bulk", clients[1][2])
+            try:
+                cut.submit([want["items"][i] for i in clients[0][0][0]])
+                check(False, "wire: the cut client's send did not fail")
+            except ConnectionError:
+                pass
+            runs.append(clean.result())
+        cut.close()
+    finally:
+        faults.clear("wire.client.cut")
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and \
+            not srv.snapshot()["malformed_reasons"].get("disconnect"):
+        time.sleep(0.01)
+    snap = srv.snapshot()
+    check(snap["malformed_reasons"] == {"disconnect": 1} and
+          snap["conservation_gap"] == 0,
+          f"wire: after the cut, malformed {snap['malformed_reasons']}, "
+          f"gap {snap['conservation_gap']}")
+    srv.stop(timeout=60)
+    snap = srv.snapshot()
+    check(snap["pending"] == 0 and snap["conservation_gap"] == 0 and
+          snap["resolved"] == snap["accepted"] and snap["refused"] == 0,
+          f"wire: after stop() {snap}")
+    tickets = [tk for sent, _lat in runs for tk, _rows in sent]
+    lat = [x for _sent, la in runs for x in la]
+    sigs = sum(t.n_items for t in tickets)
+    res = {"wall_s": wall_s, "sigs": snap["items_decoded"],
+           "sigs_per_s": sum(t.n_items for sent, _ in runs[:len(clients)]
+                             for t, _r in sent) / wall_s,
+           "frames": snap["frames_received"],
+           "bytes_in": snap["bytes_in"], "bytes_out": snap["bytes_out"],
+           "malformed": snap["malformed_reasons"],
+           "client_p50_ms": round(float(np.percentile(lat, 50)), 3),
+           "client_p99_ms": round(float(np.percentile(lat, 99)), 3),
+           "pool": snap["pool"]}
+    print(f"[fleet] (b) wire: {len(clients)} clients on loopback "
+          f"({WIRE_CLIENTS} x {WIRE_SUBS} bulk x {per}, client 0 torn, "
+          f"1 x {len(want['scp'])} scp x {SCP_SIGS}) in {wall_s:.3f} s, "
+          f"{res['sigs_per_s']:.0f} sigs/s; then a cut client beside a "
+          f"clean one; {sigs} sigs in {res['frames']} frames, "
+          f"{res['bytes_in']} B in, {res['bytes_out']} B out; submission "
+          f"p50 {res['client_p50_ms']} ms, p99 {res['client_p99_ms']} ms "
+          f"(client side); malformed {res['malformed']}; every verdict "
+          f"equal to the oracle, conservation gap 0, nothing pending after "
+          f"stop()")
+    return srv, res, tickets
+
+
+def phase_fleet(dev, rng, want, info):
+    """Phase 19: the fleet and the wire on the card, the signer-table
+    cache on. The first dispatch of one replica with an empty cache is
+    timed apart; one untimed call then builds every signer's table, so
+    (a) and (b) measure the steady state. K1's and K2's launch counts are
+    set to 0 before (a) and before (b) and read after each: both kernels
+    must launch in both. (c) the journal of the drained fleet and
+    ingress: the completeness law exact, two collects merged without
+    divergence, every wire trace stitched whole."""
+    t0 = time.perf_counter()
+    v = BatchVerifier(device=dev, bucket_sizes=DEFAULT_BUCKET_SIZES)
+    signer_table_cache._reset_for_testing()
+    signer_table_cache.configure(enabled=True)
+    res = {"card": info["smi"]}
+    launches = {}
+    try:
+        first = fleet.FleetRouter(verifier=v, replicas=FLEET_REPLICAS).start()
+        rows = want["bulk"][0]
+        t = time.perf_counter()
+        got = first.submit([want["items"][i] for i in rows], lane="bulk",
+                           tenant="t0").result(timeout=120)
+        res["first_sight_dispatch_s"] = time.perf_counter() - t
+        first.stop(drain=True, timeout=60)
+        check(np.array_equal(got, want["ok"][rows]),
+              "fleet: the first-sight dispatch differs from the oracle")
+        print(f"[fleet] first sight: one replica's first dispatch of "
+              f"{len(rows)} bulk rows with the signer-table cache empty "
+              f"took {res['first_sight_dispatch_s']:.3f} s (its tables "
+              f"built inside the shared engine's lock)")
+        t = time.perf_counter()
+        v.verify_batch(want["items"])
+        res["table_build_s"] = time.perf_counter() - t
+        vk.verify_kernel.launches = 0
+        vk.verify_kernel_hot.launches = 0
+        fl, res["fleet"] = _fleet_run(v, want)
+        launches["fleet"] = _launches_since_zero("fleet")
+        srv, res["wire"], wire_tickets = _wire_run(fl, want)
+        launches["wire"] = _launches_since_zero("wire")
+        fl.stop(drain=True, timeout=60)
+        res["journal"] = _journal_view(fl, srv, wire_tickets)
+    finally:
+        signer_table_cache._reset_for_testing()
+    check_dispatch_clean([v], "fleet")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[fleet] phase done in {res['seconds']:.1f} s (tables built in "
+          f"{res['table_build_s']:.1f} s); K1 and K2 launches (a) "
+          f"{launches['fleet']}, (b) {launches['wire']}; card {info['smi']}")
+    return res, launches
+
+
+def _launches_since_zero(label):
+    """K1's and K2's launch counts since they were set to 0, both of
+    which must be above 0; the counts are set to 0 again."""
+    torch.cuda.synchronize()
+    out = {"verify_cold": vk.verify_kernel.launches,
+           "verify_hot": vk.verify_kernel_hot.launches}
+    check(all(n > 0 for n in out.values()),
+          f"fleet ({label}): K1 and K2 launches {out}")
+    vk.verify_kernel.launches = 0
+    vk.verify_kernel_hot.launches = 0
+    return out
+
+
+def _journal_view(fl, srv, wire_tickets):
+    """(c): the journal of the drained fleet and ingress."""
+    j1 = journal.collect(fleet=fl, ingress=srv)
+    j2 = journal.collect(fleet=fl, ingress=srv)
+    merged = journal.merge(j1, j2)   # raises JournalDivergence
+    comp = journal.completeness(merged, drained=True)
+    check(comp["gap"] == 0 and not comp["wrapped"],
+          f"journal: completeness {comp}")
+    ids = _block_ends(wire_tickets)
+    frac = journal.stitch_fraction(
+        ids, tracing.flight_recorder,
+        require=("wire", "route", "enqueue", "terminal"))
+    check(frac == 1.0, f"journal: the wire traces stitch {frac}")
+    out = {"completeness_gap": comp["gap"], "checks": len(comp["checks"]),
+           "events": len(merged["events"]), "wire_blocks": len(wire_tickets),
+           "wire_traces": sum(t.n_items for t in wire_tickets),
+           "stitch_fraction": frac}
+    print(f"[fleet] (c) journal: {out['events']} events over "
+          f"{len(merged['components'])} components, completeness gap 0 over "
+          f"{out['checks']} checks (drained), two collects merged without "
+          f"divergence; the {out['wire_traces']} wire traces' "
+          f"{len(wire_tickets)} blocks (both ends of each) stitch "
+          f"wire -> route -> enqueue -> terminal: {frac}")
+    return out
 
 
 def phase_faults(v, items, want):
@@ -2950,8 +3429,10 @@ def main() -> int:
     transfer_cost = phase_transfer_cost(dev, rng, txset_items, txset_want)
     deadline = phase_deadline(dev, txset_items, txset_want)
     probe = phase_probe()
-    service, service_a, service_launches = phase_service(
+    service, service_a, service_launches, service_want = phase_service(
         dev, rng, txset_items, txset_want, info)
+    fleet_res, fleet_launches = phase_fleet(dev, rng, service_want, info)
+    del service_want
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
@@ -2966,6 +3447,8 @@ def main() -> int:
                      launches_deadline_phase=deadline["launches"],
                      launches_service=service_launches["verify_cold"],
                      launches_service_mixed=service_a["verify_cold"],
+                     launches_fleet=fleet_launches["fleet"]["verify_cold"],
+                     launches_wire=fleet_launches["wire"]["verify_cold"],
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -2973,6 +3456,8 @@ def main() -> int:
                      KERNEL_BATCHES[0], info["smi"], block_sweep=k2_sweep,
                      launches_service=service_launches["verify_hot"],
                      launches_service_mixed=service_a["verify_hot"],
+                     launches_fleet=fleet_launches["fleet"]["verify_hot"],
+                     launches_wire=fleet_launches["wire"]["verify_hot"],
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -3009,7 +3494,7 @@ def main() -> int:
         "split_txset": split, "audit_cost": audit_cost,
         "transfer_cost": transfer_cost,
         "deadline": deadline, "probe": probe, "service": service,
-        "fault_domains": fault_domains, "card": info["smi"]}))
+        "fleet": fleet_res, "fault_domains": fault_domains, "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

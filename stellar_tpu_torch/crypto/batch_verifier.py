@@ -33,7 +33,8 @@ module: :func:`configure_dispatch`, :func:`device_available`,
 :func:`dispatch_attribution` over the ``verify.*`` spans, and the verify
 service's hooks (:func:`register_service_health`,
 :func:`service_health_snapshot`, :func:`note_shed_onset`,
-:func:`dispatch_degraded`).
+:func:`dispatch_degraded`) and the fleet router's
+(:func:`register_fleet_health`, :func:`fleet_health_snapshot`).
 
 :meth:`BatchVerifier.install` makes a verifier the backend of the port's
 node cache (:mod:`stellar_tpu_torch.crypto.keys`), optionally behind a
@@ -56,8 +57,9 @@ from stellar_tpu_torch.parallel import mesh, signer_tables
 from stellar_tpu_torch.parallel.batch_engine import (  # noqa: F401
     DEFAULT_BUCKET_SIZES, RESOLVE_PHASES, RESOLVE_ROOT, BatchEngine,
     Workload, configure_dispatch, device_available, dispatch_attribution,
-    dispatch_degraded, dispatch_health, note_shed_onset, note_trace_event,
-    register_default_engine, register_service_health,
+    dispatch_degraded, dispatch_health, fleet_health_snapshot,
+    note_shed_onset, note_trace_event, register_default_engine,
+    register_fleet_health, register_service_health,
     service_health_snapshot, start_device_probe, trace_ranges)
 from stellar_tpu_torch.utils import resilience, tracing
 from stellar_tpu_torch.utils.device import resolve_device
@@ -68,7 +70,8 @@ __all__ = ["BatchVerifier", "Ed25519Workload", "Ed25519HotWorkload",
            "device_available", "start_device_probe", "dispatch_health",
            "dispatch_attribution", "dispatch_degraded", "note_shed_onset",
            "note_trace_event", "trace_ranges", "register_service_health",
-           "service_health_snapshot", "RESOLVE_PHASES", "RESOLVE_ROOT"]
+           "service_health_snapshot", "register_fleet_health",
+           "fleet_health_snapshot", "RESOLVE_PHASES", "RESOLVE_ROOT"]
 
 # libsodium's blocklist, as a (14, 32) uint8 matrix for a vectorized compare.
 _SMALL_ORDER = np.stack([np.frombuffer(e, dtype=np.uint8)
@@ -237,19 +240,24 @@ class BatchVerifier(BatchEngine):
         hot_idx, hot_items = [], []
         cold_idx, cold_items = [], []
         with tracing.span(f"{self._span_ns}.prep"):
-            for i, it in enumerate(items):
-                pk = it[0]
-                tab = cache.lookup(pk) if len(pk) == 32 else None
-                if tab is not None:
-                    hot_idx.append(i)
-                    hot_items.append((it, tab))
-                    continue
-                cold_idx.append(i)
-                cold_items.append(it)
-                if len(pk) == 32:
-                    built = signer_tables.build_signer_table(pk)
-                    if built is not None:
-                        cache.install(pk, built)
+            try:
+                for i, it in enumerate(items):
+                    pk = it[0]
+                    tab = cache.lookup(pk, mark=False) \
+                        if len(pk) == 32 else None
+                    if tab is not None:
+                        hot_idx.append(i)
+                        hot_items.append((it, tab))
+                        continue
+                    cold_idx.append(i)
+                    cold_items.append(it)
+                    if len(pk) == 32:
+                        built = signer_tables.build_signer_table(pk)
+                        if built is not None:
+                            cache.install(pk, built)
+            finally:
+                # the registry's hit and miss counters, once a batch
+                cache.flush_marks()
             hot_ix = np.asarray(hot_idx, dtype=np.intp)
             cold_ix = np.asarray(cold_idx, dtype=np.intp)
         if not hot_items:

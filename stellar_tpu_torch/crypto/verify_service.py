@@ -58,7 +58,7 @@ decision sequences. Per-tenant work conservation holds exactly
 with ``failed == 0`` in healthy operation: no item is ever dropped
 silently, and ``snapshot()["conservation_gap"]`` reads 0 at all times.
 ``handoff`` counts items drained with :meth:`VerifyService.drain_handoff`
-for re-submission elsewhere (the reference's fleet router; not ported).
+for re-submission elsewhere (:mod:`stellar_tpu_torch.crypto.fleet`).
 The port's engine has no host failover: a part whose card fails, or
 misses ``DEADLINE_MS``, moves to another device, and with none left the
 resolve raises, so those items count ``failed`` where the reference

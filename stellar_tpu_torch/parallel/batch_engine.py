@@ -88,9 +88,10 @@ feeds :func:`dispatch_health` and sends nothing to the CPU.
 **Service hooks.** The resident verify service
 (:mod:`stellar_tpu_torch.crypto.verify_service`) registers its snapshot
 (:func:`register_service_health`, read back under ``dispatch_health()
-["service"]``), dumps the flight recorder on its first shed
-(:func:`note_shed_onset`) and reads :func:`dispatch_degraded` as the
-pressure input of its shed ladder. The reference answers that from its
+["service"]``; the fleet router likewise through
+:func:`register_fleet_health` under ``["fleet"]``), dumps the flight
+recorder on its first shed (:func:`note_shed_onset`) and reads
+:func:`dispatch_degraded` as the pressure input of its shed ladder. The reference answers that from its
 process-wide breaker and host-only flag, which the port has not; the
 port's answer is the probe's ``dead`` or a default ``verify`` engine with
 no device that admits work (ROADMAP.md, divergences).
@@ -124,6 +125,7 @@ __all__ = ["DEFAULT_BUCKET_SIZES", "Workload", "BatchEngine",
            "phase_attribution", "dispatch_attribution", "trace_ranges",
            "note_trace_event", "register_default_engine",
            "register_service_health", "service_health_snapshot",
+           "register_fleet_health", "fleet_health_snapshot",
            "note_shed_onset", "dispatch_degraded",
            "PHASE_SUFFIXES", "RESOLVE_PHASES", "RESOLVE_ROOT"]
 
@@ -321,6 +323,28 @@ def service_health_snapshot() -> dict:
     return provider() if provider is not None else {"running": False}
 
 
+_fleet_health_provider: Optional[Callable[[], dict]] = None
+
+
+def register_fleet_health(provider: Optional[Callable[[], dict]]
+                          ) -> None:
+    """Install the replicated fleet's snapshot callable, so
+    :func:`dispatch_health` carries its replicas' states and the fleet's
+    conservation law beside the single service's. ``None`` unregisters
+    (tests)."""
+    global _fleet_health_provider
+    with _service_lock:
+        _fleet_health_provider = provider
+
+
+def fleet_health_snapshot() -> dict:
+    """The registered fleet's snapshot, or ``{"enabled": False}`` when no
+    fleet ever started."""
+    with _service_lock:
+        provider = _fleet_health_provider
+    return provider() if provider is not None else {"enabled": False}
+
+
 def note_shed_onset(reason: str) -> None:
     """The service's first shed: dump the flight recorder, so the spans
     and queue events that led into the overload can be read."""
@@ -352,8 +376,8 @@ def dispatch_health() -> dict:
     deadline, retry, short-circuit and audit counts, each default
     engine's fault domains (:meth:`BatchEngine.health_snapshot`), the
     watchdog pool, the flight recorder's accounting, the transfer
-    ledger's totals, the resident cache and the verify service's
-    snapshot."""
+    ledger's totals, the resident cache, the verify service's snapshot
+    and the fleet's."""
     return {
         "device_state": _device_state or "unprobed",
         "probe_breaker": _probe_breaker.snapshot(),
@@ -377,6 +401,7 @@ def dispatch_health() -> dict:
         "transfer": transfer_ledger.totals(),
         "resident": residency.resident_cache.snapshot(),
         "service": service_health_snapshot(),
+        "fleet": fleet_health_snapshot(),
     }
 
 

@@ -13,10 +13,12 @@ decompression and the table build and runs radix-256 windows.
   same signers. The encoding, not the point, is the key: a non-canonical
   alias of a cached key misses and rides the cold path, whose host gate
   vetoes it.
-* A byte budget (``VERIFY_SIGNER_TABLE_BYTES``) bounds retention with
-  LRU eviction; ``VERIFY_SIGNER_TABLE_ENABLED`` (on unless ``0``,
-  ``false`` or ``no``, as in the reference) turns the cache off, and then
-  every row rides cold.
+* A byte budget (:data:`DEFAULT_CACHE_BYTES`, 64 MiB) bounds retention
+  with LRU eviction; the cache is on by default, as in the reference, and
+  off every row rides cold. Both knobs are module constants, set at run
+  time through :meth:`SignerTableCache.configure`: no environment option
+  is read (the reference's ``VERIFY_SIGNER_TABLE_*`` are its node's
+  Config knobs).
 * :meth:`SignerTableCache.evict` is the audit hook: a conviction over a
   hot-served part drops the tables that served it.
 
@@ -24,14 +26,21 @@ An entry is installed only after ``point_decompress`` succeeded and the
 rows were derived from that point by the pure-Python oracle, so cache
 membership is the decompression proof the hot kernel relies on. The
 values are host numpy arrays, ``(128, 3, 20)`` int16 canonical 13-bit
-limbs, read-only once cached. The reference's metrics-registry counters
-are tallies in :meth:`SignerTableCache.snapshot` here.
+limbs, read-only once cached. Lookups, installs and evictions mark the
+reference's registry counters ``crypto.verify.signer_table.{hits,misses,
+installs,evictions,audit_evictions}`` and keep the same tallies in
+:meth:`SignerTableCache.snapshot`. The counters are fetched from the
+registry once, at import (the registry never drops a metric), so a mark
+is one increment; :meth:`BatchVerifier.submit
+<stellar_tpu_torch.crypto.batch_verifier.BatchVerifier.submit>`'s partition
+marks a batch's hits and misses once (``lookup(mark=False)``, then
+:meth:`SignerTableCache.flush_marks`), so after every call the counters
+equal the tallies.
 """
 
 from __future__ import annotations
 
 import hashlib
-import os
 import threading
 from collections import OrderedDict
 from typing import Optional
@@ -39,10 +48,13 @@ from typing import Optional
 import numpy as np
 
 from stellar_tpu_torch.crypto import ed25519_ref as ref
+from stellar_tpu_torch.utils.metrics import registry
 
 __all__ = ["SignerTableCache", "signer_table_cache", "build_signer_table",
            "signer_fingerprint", "TABLE_ENTRIES", "TABLE_BYTES",
-           "DEFAULT_CACHE_BYTES"]
+           "DEFAULT_CACHE_BYTES", "ENABLED"]
+
+_NS = "crypto.verify.signer_table"
 
 # Table geometry: the hot kernel's operand contract (ops/edwards.py
 # TABLE_ENTRIES256, AFFINE_COORDS and field25519.NLIMBS).
@@ -53,11 +65,17 @@ _LIMB_BITS = 13
 _LIMB_MASK = (1 << _LIMB_BITS) - 1
 TABLE_BYTES = TABLE_ENTRIES * _COORDS * _NLIMBS * 2  # int16
 
-# 64 MiB holds about 4.3k signers at 15 KiB a table.
-DEFAULT_CACHE_BYTES = int(os.environ.get(
-    "VERIFY_SIGNER_TABLE_BYTES", str(64 << 20)))
-_ENABLED_DEFAULT = os.environ.get(
-    "VERIFY_SIGNER_TABLE_ENABLED", "1") not in ("0", "false", "no")
+# The knobs' defaults, the reference's (set at run time through
+# SignerTableCache.configure). 64 MiB holds about 4.3k signers at 15 KiB
+# a table.
+DEFAULT_CACHE_BYTES = 64 << 20
+ENABLED = True
+
+# The registry's counters, fetched once: the registry never drops a metric,
+# so these stay the objects that its snapshots and exports read.
+_MISSES, _HITS, _INSTALLS, _EVICTIONS, _AUDIT_EVICTIONS = (
+    registry.counter(f"{_NS}.{k}") for k in (
+        "misses", "hits", "installs", "evictions", "audit_evictions"))
 
 
 def signer_fingerprint(pk: bytes) -> bytes:
@@ -99,7 +117,7 @@ class SignerTableCache:
     under the instance lock."""
 
     def __init__(self, max_bytes: int = DEFAULT_CACHE_BYTES,
-                 enabled: bool = _ENABLED_DEFAULT):
+                 enabled: bool = ENABLED):
         self._lock = threading.Lock()
         self._entries: OrderedDict = OrderedDict()  # fingerprint -> table
         self._max_bytes = max(0, int(max_bytes))
@@ -109,6 +127,8 @@ class SignerTableCache:
         self._installs = 0
         self._evictions = 0
         self._audit_evictions = 0
+        self._unmarked_hits = 0     # lookups not yet marked in the registry
+        self._unmarked_misses = 0
 
     def configure(self, max_bytes: Optional[int] = None,
                   enabled: Optional[bool] = None) -> None:
@@ -128,9 +148,12 @@ class SignerTableCache:
     def enabled(self) -> bool:
         return self._enabled
 
-    def lookup(self, pk: bytes) -> Optional[np.ndarray]:
+    def lookup(self, pk: bytes, mark: bool = True) -> Optional[np.ndarray]:
         """The cached table of this signer, or None (a miss, or the cache
-        is off). A hit refreshes its recency."""
+        is off). A hit refreshes its recency. The tallies move at once;
+        ``mark=False`` leaves the registry's hit or miss mark to
+        :meth:`flush_marks`, so a batch's partition marks its lookups
+        once a batch and not once a row."""
         if not self._enabled:
             return None
         fp = signer_fingerprint(pk)
@@ -138,10 +161,27 @@ class SignerTableCache:
             hit = self._entries.get(fp)
             if hit is None:
                 self._misses += 1
-                return None
-            self._entries.move_to_end(fp)
-            self._hits += 1
+                if not mark:
+                    self._unmarked_misses += 1
+            else:
+                self._entries.move_to_end(fp)
+                self._hits += 1
+                if not mark:
+                    self._unmarked_hits += 1
+        if mark:
+            (_MISSES if hit is None else _HITS).inc()
         return hit
+
+    def flush_marks(self) -> None:
+        """Mark the registry's hit and miss counters with the lookups made
+        with ``mark=False`` since the last flush."""
+        with self._lock:
+            hits, misses = self._unmarked_hits, self._unmarked_misses
+            self._unmarked_hits = self._unmarked_misses = 0
+        if hits:
+            _HITS.inc(hits)
+        if misses:
+            _MISSES.inc(misses)
 
     def install(self, pk: bytes, table: np.ndarray) -> bool:
         """Keep one freshly built table; True when cached. The table is
@@ -156,6 +196,7 @@ class SignerTableCache:
             self._entries[fp] = table
             self._installs += 1
             self._evict_locked()
+        _INSTALLS.inc()
         return True
 
     def evict(self, pk: bytes) -> bool:
@@ -167,6 +208,8 @@ class SignerTableCache:
             present = self._entries.pop(fp, None) is not None
             if present:
                 self._audit_evictions += 1
+        if present:
+            _AUDIT_EVICTIONS.inc()
         return present
 
     def _evict_locked(self) -> None:
@@ -174,6 +217,7 @@ class SignerTableCache:
                 and self._entries:
             self._entries.popitem(last=False)
             self._evictions += 1
+            _EVICTIONS.inc()
 
     def snapshot(self) -> dict:
         """The knobs, the size and the tallies since the last reset."""
@@ -193,11 +237,13 @@ class SignerTableCache:
 
     def _reset_for_testing(self) -> None:
         """Drop every table and tally and restore the knobs' defaults, as
-        at process start."""
+        at process start. Lookups not yet marked are marked first: the
+        registry's counters never lose one."""
+        self.flush_marks()
         with self._lock:
             self._entries.clear()
             self._max_bytes = max(0, int(DEFAULT_CACHE_BYTES))
-            self._enabled = bool(_ENABLED_DEFAULT)
+            self._enabled = bool(ENABLED)
             self._hits = 0
             self._misses = 0
             self._installs = 0

@@ -31,10 +31,12 @@ Times are monotonic milliseconds since this module was imported
 (:func:`_now_ms`); they feed metrics and the recorder, never a
 decision.
 
-Left out (ROADMAP.md, queue 1 step 2): ``trace_timeline``'s ``summary``
-and ``stitch`` of the verify service's and the fleet's milestones, and
-``to_chrome_trace``'s per-replica tracks, which the port does not write
-yet; ``frame_mark``, which the ledger close calls.
+``trace_timeline`` stitches one trace's records across the wire, the
+fleet router and the replicas (``stitch``), and ``to_chrome_trace
+(by_replica=True)`` puts each fleet replica on a process track of its
+own. Left out (ROADMAP.md, queue 1 step 3): ``current_zones``,
+``FlightRecorder.configure`` and ``frame_mark``, which the ledger close
+calls.
 """
 
 from __future__ import annotations
@@ -200,10 +202,14 @@ class FlightRecorder:
 
     def trace_timeline(self, trace_id: int) -> dict:
         """Every record of the ring, the open spans and the dumps whose
-        ``traces`` ranges hold ``trace_id``, by start time, and the
-        count and total time of each span name among them. The ring is
-        bounded, so an old trace comes back in part (``found`` is True
-        when anything matched)."""
+        ``traces`` ranges hold ``trace_id``, by start time, the count and
+        total time of each span name among them, the service's milestones
+        (``summary``: queue wait, coalesce, dispatch to verdict, the
+        tenant, a drop) and the cross-replica ``stitch``: which segments
+        of the wire -> route -> replica -> verdict path are present, the
+        replica hops, and whether every handoff was followed by a
+        re-admission (``seamless``). The ring is bounded, so an old trace
+        comes back in part (``found`` is True when anything matched)."""
         tid = int(trace_id)
         with self._lock:
             recs = {r["id"]: dict(r) for r in self._ring
@@ -217,6 +223,13 @@ class FlightRecorder:
                         recs.setdefault(r["id"], dict(r))
         records = sorted(recs.values(),
                          key=lambda r: (r["start_ms"], r["id"]))
+
+        def first(name):
+            for r in records:
+                if r["name"] == name:
+                    return r
+            return None
+
         phases: Dict[str, dict] = {}
         for r in records:
             if r.get("event") or r.get("dur_ms") is None:
@@ -225,10 +238,76 @@ class FlightRecorder:
                                   {"count": 0, "total_ms": 0.0})
             p["count"] += 1
             p["total_ms"] = round(p["total_ms"] + r["dur_ms"], 3)
-        return {"trace": tid, "found": bool(records),
-                "records": records, "phases": phases}
+        summary = {}
+        enq = first("service.enqueue")
+        coal = first("service.coalesce")
+        verdict = first("service.verdict")
+        disp = first("span.service.dispatch")
+        # tenant attribution: the enqueue milestone carries
+        # the submitting tenant, so one item's queue wait is
+        # attributable to its principal from the trace route alone
+        # (shed/reject milestones carry it too — the fallback covers
+        # items refused before any enqueue was recorded)
+        for rec in (enq, first("service.shed"),
+                    first("service.reject")):
+            tenant = (rec or {}).get("attrs", {}).get("tenant")
+            if tenant is not None:
+                summary["tenant"] = tenant
+                break
+        if enq and coal:
+            summary["queue_wait_ms"] = round(
+                coal["start_ms"] - enq["start_ms"], 3)
+        if disp and verdict:
+            summary["dispatch_to_verdict_ms"] = round(
+                verdict["start_ms"] - disp["start_ms"], 3)
+        if enq and verdict:
+            summary["enqueue_to_verdict_ms"] = round(
+                verdict["start_ms"] - enq["start_ms"], 3)
+        shed = first("service.shed") or first("service.reject")
+        if shed is not None:
+            summary["dropped"] = shed["name"]
 
-    def to_chrome_trace(self) -> dict:
+        # cross-replica stitch summary: which segments of
+        # the wire -> route -> replica -> verdict path are present,
+        # the replica hop sequence (one entry per fleet.route, with
+        # the rendezvous score; handoff re-routes flagged), and the
+        # seam check — every service.handoff must be followed by a
+        # re-admission on a survivor, so a re-homed trace's timeline
+        # reads handoff -> route -> enqueue -> verdict with no gap.
+        def every(name):
+            return [r for r in records if r["name"] == name]
+
+        routes = every("fleet.route")
+        handoffs = every("service.handoff")
+        enqueues = every("service.enqueue")
+        terminal = (first("service.verdict") or first("service.shed")
+                    or first("service.reject")
+                    or first("fleet.refuse"))
+        hops = [{"replica": r.get("attrs", {}).get("replica"),
+                 "score": r.get("attrs", {}).get("score"),
+                 "handoff": bool(r.get("attrs", {}).get("handoff"))}
+                for r in routes]
+        order = {r["id"]: i for i, r in enumerate(records)}
+        seamless = all(
+            any(order[e["id"]] > order[h["id"]] for e in enqueues)
+            for h in handoffs)
+        stitch = {
+            "wire": bool(first("ingress.frame")),
+            "route": bool(routes),
+            "enqueue": bool(enqueues),
+            "terminal": terminal["name"] if terminal else None,
+            "hops": hops,
+            "handoffs": len(handoffs),
+            "seamless": seamless,
+            "end_to_end": (bool(first("ingress.frame"))
+                           and bool(routes) and terminal is not None
+                           and seamless),
+        }
+        return {"trace": tid, "found": bool(records),
+                "records": records, "phases": phases,
+                "summary": summary, "stitch": stitch}
+
+    def to_chrome_trace(self, by_replica: bool = False) -> dict:
         """The recorder as Chrome ``trace_event`` JSON: a thread-named
         track each (``M`` events), closed spans as nested ``B``/``E``
         pairs, instant events and open or abandoned spans as ``i``
@@ -236,7 +315,14 @@ class FlightRecorder:
         where it is parked), and the pipeline timeline's counter tracks
         (``C``) on the same clock. Nesting follows the records' parent
         links on one thread, and a child's interval is clamped inside
-        its parent's, so rounding never crosses a begin/end pair."""
+        its parent's, so rounding never crosses a begin/end pair.
+
+        ``by_replica=True`` is the whole fleet's view: records of a fleet
+        replica (a ``replica`` attribute, or a ``verify-service/<i>``
+        dispatcher thread) move to a process track of their own (pid
+        ``2 + i``, named by ``process_name`` metadata), everything else
+        stays on the host track (pid 1). Every track shares the one
+        recorder clock, so the order across replicas is real."""
         with self._lock:
             done = [dict(r) for r in self._ring]
             open_ = [dict(r, open=True) for r in self._active.values()]
@@ -246,11 +332,32 @@ class FlightRecorder:
                     if r.get("event") or r.get("dur_ms") is None]
         instants += open_
         tids: Dict[str, int] = {}
+        seen_tracks: Dict[tuple, str] = {}
 
         def tid_of(thread: str) -> int:
             if thread not in tids:
                 tids[thread] = len(tids) + 1
             return tids[thread]
+
+        def pid_of(r) -> int:
+            if not by_replica:
+                return 1
+            rep = (r.get("attrs") or {}).get("replica")
+            if rep is None:
+                th = r.get("thread", "")
+                if th.startswith("verify-service/"):
+                    tail = th.rsplit("/", 1)[1]
+                    if tail.isdigit():
+                        rep = int(tail)
+            try:
+                return 1 if rep is None else 2 + int(rep)
+            except (TypeError, ValueError):
+                return 1
+
+        def track(pid: int, r) -> int:
+            tid = tid_of(r["thread"])
+            seen_tracks.setdefault((pid, tid), r["thread"])
+            return tid
 
         by_id = {r["id"]: r for r in spans}
         children: Dict[int, list] = {}
@@ -263,31 +370,33 @@ class FlightRecorder:
                 roots.setdefault(r["thread"], []).append(r)
         events: List[dict] = []
 
-        def emit(r, lo_ms: float, hi_ms: float) -> float:
+        def emit(r, lo_ms: float, hi_ms: float, pid: int) -> float:
             """One span's B/E pair and its subtree, clamped to the
             parent's [lo_ms, hi_ms]; returns the span's end, so a
-            sibling cannot overlap it."""
+            sibling cannot overlap it. The subtree keeps the root's pid:
+            nesting stays within one track."""
             t0 = min(max(r["start_ms"], lo_ms), hi_ms)
             t1 = min(max(t0, r["start_ms"] + r["dur_ms"]), hi_ms)
-            tid = tid_of(r["thread"])
+            tid = track(pid, r)
             args = {"id": r["id"]}
             if r.get("attrs"):
                 args.update(r["attrs"])
-            events.append({"name": r["name"], "ph": "B", "pid": 1,
+            events.append({"name": r["name"], "ph": "B", "pid": pid,
                            "tid": tid, "ts": round(t0 * 1000.0, 1),
                            "args": args})
             cursor = t0
             for c in sorted(children.get(r["id"], []),
                             key=lambda x: (x["start_ms"], x["id"])):
-                cursor = emit(c, max(cursor, t0), t1)
-            events.append({"name": r["name"], "ph": "E", "pid": 1,
+                cursor = emit(c, max(cursor, t0), t1, pid)
+            events.append({"name": r["name"], "ph": "E", "pid": pid,
                            "tid": tid, "ts": round(t1 * 1000.0, 1)})
             return t1
 
         for thread, rs in sorted(roots.items()):
             cursor = 0.0
             for r in sorted(rs, key=lambda x: (x["start_ms"], x["id"])):
-                cursor = emit(r, max(cursor, r["start_ms"]), float("inf"))
+                cursor = emit(r, max(cursor, r["start_ms"]), float("inf"),
+                              pid_of(r))
         for r in instants:
             args = {"id": r["id"]}
             if r.get("attrs"):
@@ -296,17 +405,24 @@ class FlightRecorder:
                 args["open"] = True
             if r.get("abandoned"):
                 args["abandoned"] = True
-            events.append({"name": r["name"], "ph": "i", "pid": 1,
-                           "tid": tid_of(r["thread"]), "s": "t",
+            pid = pid_of(r)
+            events.append({"name": r["name"], "ph": "i", "pid": pid,
+                           "tid": track(pid, r), "s": "t",
                            "ts": round(r["start_ms"] * 1000.0, 1),
                            "args": args})
         # imported here: the timeline imports this module at load time
         from stellar_tpu_torch.utils.timeline import pipeline_timeline
         events += pipeline_timeline.chrome_counter_events()
-        meta = [{"name": "thread_name", "ph": "M", "pid": 1, "tid": tid,
+        meta = [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
                  "args": {"name": thread}}
-                for thread, tid in sorted(tids.items(),
-                                          key=lambda kv: kv[1])]
+                for (pid, tid), thread in sorted(seen_tracks.items())]
+        if by_replica:
+            pids = sorted({pid for pid, _tid in seen_tracks})
+            meta += [{"name": "process_name", "ph": "M", "pid": pid,
+                      "tid": 0,
+                      "args": {"name": ("host" if pid == 1 else
+                                        f"replica {pid - 2}")}}
+                     for pid in pids]
         return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
 
     def clear(self) -> None:

@@ -2,8 +2,9 @@
 its plain PyTorch version on the same CUDA tensors, bit for bit and word
 for word (integer arithmetic, tolerance zero), all four also at ragged
 sizes (K3 at 16,384 rows too), K1 and K2 at each block size they take; K4 over the one card named
-four times against K1; and the batch verifier's (unsplit and split) and
-hasher's main paths through the kernels.
+four times against K1; the batch verifier's (unsplit and split) and
+hasher's main paths through the kernels; and a three-replica fleet over
+one card's verifier behind the wire ingress on loopback.
 
 Every test needs a CUDA card and skips inside the test when there is
 none; on the card run ``python -m pytest -m gpu tests/test_torch_cuda.py``.
@@ -357,3 +358,41 @@ def test_default_verifier_spans_every_card(card):
         assert v.devices is None and v.device == card
     else:
         assert v.devices == mesh.batch_devices()
+
+
+def test_fleet_behind_ingress_on_card(card):
+    """A ``FleetRouter`` of three replicas over one card's verifier behind
+    an ``IngressServer``: a TxSet of 500 signatures from 500 signers (2%
+    corrupted) sent twice on loopback in frames of 100 over five tenants;
+    every verdict equals the oracle, the second pass rides K2, and the
+    wire's and the fleet's conservation laws read 0."""
+    from stellar_tpu_torch.crypto import fleet, ingress, native_verify
+    rng = np.random.default_rng(72)
+    items = vectors.valid_items(rng, 500)
+    for i in range(0, 500, 50):
+        pk, msg, sig = items[i]
+        items[i] = (pk, msg + b"!", sig)
+    want = native_verify.host_verify(items)
+    st.signer_table_cache._reset_for_testing()
+    st.signer_table_cache.configure(enabled=True)
+    v = BatchVerifier(device=card, bucket_sizes=(128, 512, 2048))
+    fl = fleet.FleetRouter(verifier=v, replicas=3).start()
+    srv = ingress.IngressServer(fl, "127.0.0.1", 0).start()
+    cli = ingress.WireClient("127.0.0.1", srv.port, timeout=120)
+    hot0 = tvk.verify_kernel_hot.launches
+    try:
+        for _ in range(2):
+            tkts = [(cli.submit(items[k:k + 100], tenant=f"t{k // 100}"), k)
+                    for k in range(0, 500, 100)]
+            for tkt, k in tkts:
+                assert tkt.result(timeout=120).tolist() == \
+                    want[k:k + 100].tolist()
+    finally:
+        cli.close()
+        srv.stop(timeout=30)
+        fl.stop(drain=True, timeout=60)
+        st.signer_table_cache._reset_for_testing()
+    assert tvk.verify_kernel_hot.launches > hot0
+    assert srv.snapshot()["conservation_gap"] == 0
+    assert fl.snapshot()["conservation_gap"] == 0
+    assert not want.all() and want.sum() == 490

@@ -420,16 +420,15 @@ def test_failed_probe_is_reprobed_when_the_breaker_allows():
 SHARED_KEYS = {"device_state", "deadline_ms", "dispatch_retries",
                "deadline_misses", "retries", "short_circuits", "audit",
                "watchdog", "flight_recorder", "transfer", "resident",
-               "service"}
+               "service", "fleet"}
 # the reference's process-wide breaker gates dispatch; the port's paces
 # only the probe, and each engine keeps its own breakers and tallies
 PORT_ONLY = {"probe_breaker", "engines"}
 # no host failover, no host-only mode; no donation (the caching allocator
-# reuses a freed operand's block); the fleet is not ported; the
-# signer-table cache reports through its own snapshot
+# reuses a freed operand's block); the signer-table cache reports
+# through its own snapshot
 REFERENCE_ONLY = {"breaker", "served", "fallback_chunks", "host_only",
-                  "device_health", "signer_tables", "donate_buffers",
-                  "fleet"}
+                  "device_health", "signer_tables", "donate_buffers"}
 # the reference engine's counters with no counterpart in the port: no
 # coalesced sharded upload (one copy an operand a part on its device's
 # stream) and no donated dispatch
@@ -446,6 +445,7 @@ def test_dispatch_health_shape_against_the_reference():
     assert set(port["watchdog"]) == set(ref["watchdog"])
     assert set(port["flight_recorder"]) == set(ref["flight_recorder"])
     assert port["transfer"] == ref["transfer"]
+    assert port["fleet"] == ref["fleet"] == {"enabled": False}
     # the port's resident cache starts off, the reference's on
     assert (port["resident"]["enabled"], ref["resident"]["enabled"]) == \
         (False, True)

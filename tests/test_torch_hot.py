@@ -15,6 +15,11 @@
   against the port's verifier split over two CPU indices with a ``hang``
   at the fetch: the part whose deadline passed moves, the verdicts do
   not change.
+* the signer-table cache's registry counters against the reference's on
+  one sequence of lookups, installs and evictions;
+* the slice as a whole: the same wire frames through the reference's
+  ingress, fleet and JAX ``BatchVerifier`` (the module's B = 16 one) and
+  through the port's ingress, fleet and CPU verifier, two passes.
 
 Integer arithmetic throughout: tolerance zero."""
 
@@ -22,6 +27,7 @@ import ctypes
 import hashlib
 import importlib.util
 import os
+import socket
 import subprocess
 import threading
 import time
@@ -606,6 +612,32 @@ def test_first_sight_cold_then_repeats_hot(fresh_cache):
     assert v.served["hot"] == 5 and v.served["device"] == 6
 
 
+def test_partition_marks_the_registry_once_a_batch(fresh_cache,
+                                                   monkeypatch):
+    """The partition's lookups mark the registry's hit and miss counters
+    once a batch, by the batch's counts: after every call the counters
+    have moved by the snapshot's tallies."""
+    marks = []
+    for kind, counter in (("hits", st._HITS), ("misses", st._MISSES)):
+        real = counter.inc
+        monkeypatch.setattr(counter, "inc", lambda n=1, kind=kind, real=real:
+                            (marks.append((kind, n)), real(n)))
+    names = ("hits", "misses", "installs")
+    before = {k: registry.counter(f"crypto.verify.signer_table.{k}").count
+              for k in names}
+    v = BatchVerifier(device="cpu", bucket_sizes=(16,))
+    _pk_, good, bad = _hot_pool(81)
+    assert v.verify_batch([good, good, bad, good]).tolist() == \
+        [True, True, False, True]
+    assert marks == [("hits", 3), ("misses", 1)]
+    assert v.verify_batch([bad, good]).tolist() == [False, True]
+    assert marks[2:] == [("hits", 2)]
+    snap = fresh_cache.snapshot()
+    assert {k: registry.counter(f"crypto.verify.signer_table.{k}").count
+            - before[k] for k in names} == {k: snap[k] for k in names} == \
+        {"hits": 5, "misses": 1, "installs": 1}
+
+
 def test_disabled_cache_rides_everything_cold(fresh_cache):
     fresh_cache.configure(enabled=False)
     v = BatchVerifier(device="cpu", bucket_sizes=(16,))
@@ -756,3 +788,118 @@ def test_direct_verifier_chunks_at_2048_like_the_reference(monkeypatch):
     assert not BatchVerifier(device="cpu").verify_batch(items).any()
     assert not jbv.BatchVerifier().verify_batch(items).any()
     assert seen == {"port": [2048, 1], "jax": [2048, 1]}
+
+
+# ---------------- the signer-table cache's counters ----------------
+
+
+def test_signer_table_counters_equal_the_reference(fresh_cache):
+    """One sequence of lookups, installs, evictions (the budget's and the
+    audit's) fed to both packages' caches: their registries' counters
+    ``crypto.verify.signer_table.*`` move by the same amounts, and the
+    snapshots' tallies agree with them."""
+    from stellar_tpu.utils.metrics import registry as jregistry
+    names = [f"crypto.verify.signer_table.{k}" for k in (
+        "misses", "hits", "installs", "audit_evictions", "evictions")]
+    rng = np.random.default_rng(83)
+    pks = [vectors.keypair(rng)[1] for _ in range(4)]
+    tables = [st.build_signer_table(pk) for pk in pks]
+    moved = {}
+    for name, (cache, reg) in {"port": (st.signer_table_cache, registry),
+                               "reference": (jst.signer_table_cache,
+                                             jregistry)}.items():
+        before = [reg.counter(n).count for n in names]
+        cache.configure(max_bytes=2 * st.TABLE_BYTES)
+        for pk, tab in zip(pks, tables):
+            assert cache.lookup(pk) is None
+            cache.install(pk, tab.copy())
+        assert cache.lookup(pks[3]) is not None
+        assert cache.lookup(pks[0]) is None        # evicted by the budget
+        assert cache.evict(pks[3]) and not cache.evict(pks[0])
+        cache.lookup(pks[2])
+        cache.configure(max_bytes=0)               # evicts the rest
+        moved[name] = [reg.counter(n).count - b
+                       for n, b in zip(names, before)]
+        snap = cache.snapshot()
+        assert moved[name] == [snap[k] for k in (
+            "misses", "hits", "installs", "audit_evictions", "evictions")]
+    assert moved["port"] == moved["reference"] == [5, 2, 4, 1, 3]
+
+
+# ---------------- the slice as a whole: wire, fleet, verifier ----------
+
+
+def _wire_run(server_mod, fleet_mod, verifier, frames, n_frames):
+    """``frames`` sent as they are on one loopback connection to a
+    ``server_mod.IngressServer`` over a started three-replica
+    ``fleet_mod.FleetRouter`` on ``verifier``; returns the verdicts by
+    request id and the fleet's route log, trace IDs rebased."""
+    from stellar_tpu_torch.utils import wire
+    fleet = fleet_mod.FleetRouter(verifier=verifier, replicas=3).start()
+    srv = server_mod.IngressServer(fleet, "127.0.0.1", 0).start()
+    sock = socket.create_connection(("127.0.0.1", srv.port), timeout=120)
+    got = {}
+    try:
+        sock.sendall(frames)
+        dec = wire.FrameDecoder()
+        while len(got) < n_frames:
+            data = sock.recv(65536)
+            assert data, "the server closed the connection"
+            for ftype, decoded in dec.feed_decoded(data):
+                assert ftype == wire.VERDICT, decoded
+                req_id, _lo, verdicts = decoded
+                got[req_id] = verdicts
+    finally:
+        sock.close()
+        srv.stop(timeout=30)
+        fleet.stop(drain=True, timeout=60)
+        # the health surfaces as at process start, for later tests
+        server_mod.register_ingress_health(None)
+        with server_mod._health_lock:
+            server_mod._server_ref = None
+        with fleet_mod._fleet_lock:
+            fleet_mod._fleet = None
+        server_mod.batch_verifier.register_fleet_health(None)
+        server_mod.batch_verifier.register_service_health(None)
+    assert srv.snapshot()["conservation_gap"] == 0
+    assert fleet.snapshot()["conservation_gap"] == 0
+    log = fleet.route_log()
+    base = min(r["trace_lo"] for r in log)
+    return got, [dict(r, trace_lo=r["trace_lo"] - base) for r in log]
+
+
+def test_slice_wire_fleet_verifier_equals_jax(fresh_cache, jax_verifier):
+    """The slice as a whole: the same wire frames (the edge corpus plus
+    fresh signatures in frames of 8 over six tenants, two passes, so the
+    second rides the hot path) through the reference's ``IngressServer``
+    -> ``FleetRouter(verifier=jax_verifier)`` and the port's
+    ``IngressServer`` -> ``FleetRouter`` over a CPU ``BatchVerifier``:
+    verdicts equal to each other and to the oracle, the fleets' route logs
+    equal, and the port's second pass served hot."""
+    from stellar_tpu.crypto import fleet as jfleet
+    from stellar_tpu.crypto import ingress as jingress
+    from stellar_tpu_torch.crypto import fleet as tfleet
+    from stellar_tpu_torch.crypto import ingress as tingress
+    from stellar_tpu_torch.utils import wire
+    rng = np.random.default_rng(87)
+    items = vectors.edge_corpus(rng) + vectors.valid_items(rng, 3)
+    oracle = np.array([ref.verify(*it) for it in items])
+    per = 8
+    frames, want = [], {}
+    for p in range(2):
+        for k in range(0, len(items), per):
+            req = p * 100 + k // per
+            frames.append(wire.encode_submit(items[k:k + per], "bulk",
+                                             f"t{k // per}", req))
+            want[req] = oracle[k:k + per].tolist()
+    blob = b"".join(frames)
+    v = BatchVerifier(device="cpu", bucket_sizes=(16,))
+    got_port, log_port = _wire_run(tingress, tfleet, v, blob, len(want))
+    got_ref, log_ref = _wire_run(jingress, jfleet, jax_verifier, blob,
+                                 len(want))
+    assert got_port == want
+    assert got_ref == want
+    assert log_port == log_ref
+    assert len({r["replica"] for r in log_port}) > 1
+    assert v.served["hot"] > 0
+    assert oracle.any() and not oracle.all()

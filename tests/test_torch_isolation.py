@@ -33,15 +33,17 @@ def test_forbidden_imports_absent():
     files = _port_sources()
     assert len(files) > 10 and all(os.path.exists(f) for f in files)
     for module in ("metrics", "tracing", "timeline", "resilience",
-                   "faults", "transfer_ledger", "cache"):
+                   "faults", "transfer_ledger", "cache", "wire",
+                   "journal"):
         assert os.path.join(ROOT, "stellar_tpu_torch", "utils",
                             f"{module}.py") in files
     for module in ("verify_service", "tenant", "controller", "keys",
-                   "audit", "batch_verifier"):
+                   "audit", "batch_verifier", "fleet", "ingress"):
         assert os.path.join(ROOT, "stellar_tpu_torch", "crypto",
                             f"{module}.py") in files
-    assert os.path.join(ROOT, "stellar_tpu_torch", "parallel",
-                        "residency.py") in files
+    for module in ("residency", "hostbuf", "signer_tables"):
+        assert os.path.join(ROOT, "stellar_tpu_torch", "parallel",
+                            f"{module}.py") in files
     for path in files:
         with open(path) as f:
             hits = _FORBIDDEN.findall(f.read())
@@ -57,8 +59,10 @@ def test_import_and_verify_with_jax_blocked():
     transfer ledger, the resident cache, the Prometheus text and the
     Chrome trace, raises from a deadline-guarded call under a ``hang``
     fault, verifies the three items through a ``VerifyService`` over a
-    CPU verifier on each lane and through a ``TrickleBatcher``, and reads
-    the service in ``dispatch_health()``."""
+    CPU verifier on each lane and through a ``TrickleBatcher``, reads
+    the service in ``dispatch_health()``, and runs a three-replica
+    ``FleetRouter`` over a CPU verifier behind an ``IngressServer`` with
+    one ``WireClient`` on loopback, then ``journal.collect`` over both."""
     code = "\n".join([
         "import sys, hashlib",
         "sys.modules['jax'] = None",
@@ -142,6 +146,23 @@ def test_import_and_verify_with_jax_blocked():
         "assert s['running'] and s['conservation_gap'] == 0, s",
         "assert s['totals']['verified'] == 9, s['totals']",
         "svc.stop()",
+        "from stellar_tpu_torch.crypto import fleet, ingress",
+        "from stellar_tpu_torch.utils import journal",
+        "fl = fleet.FleetRouter(verifier=v4, replicas=3).start()",
+        "srv = ingress.IngressServer(fl, '127.0.0.1', 0).start()",
+        "cli = ingress.WireClient('127.0.0.1', srv.port, timeout=60)",
+        "tk = [cli.submit(items, lane=lane, tenant=f't{k}') for k in "
+        "range(3) for lane in vs.LANES]",
+        "assert all(t.result(timeout=120).tolist() == [True, False, True] "
+        "for t in tk)",
+        "cli.close()",
+        "srv.stop(timeout=30)",
+        "fl.stop(drain=True, timeout=60)",
+        "j = journal.collect(fleet=fl, ingress=srv)",
+        "c = journal.completeness(journal.merge(j), drained=True)",
+        "assert c['gap'] == 0, c",
+        "assert j['nondet']['ingress']['resolved'] == 27, j['nondet']",
+        "assert be.dispatch_health()['fleet']['conservation_gap'] == 0",
         "assert not any(m == 'jax' or m.startswith('jax.') or m == "
         "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
         "sys.modules if sys.modules[m] is not None)",
@@ -180,3 +201,30 @@ def test_node_verify_seam():
     assert got == [ref.verify(*it) for it in items]
     assert got == [True, True, False, False, False]
     assert len(calls) == len(items)
+
+
+def test_environment_does_not_reach_the_port():
+    """The port reads no environment option: no ``os.environ`` or
+    ``getenv`` in the package or ``chip_smoke.py``, and a fresh
+    interpreter that imports the port with the reference's
+    ``VERIFY_SIGNER_TABLE_ENABLED=0`` and ``VERIFY_SIGNER_TABLE_BYTES=0``
+    set still has the signer-table cache on at its 64 MiB default."""
+    for path in _port_sources():
+        with open(path) as f:
+            text = f.read()
+        assert "os.environ" not in text and "getenv" not in text, path
+    code = "\n".join([
+        "from stellar_tpu_torch.parallel import signer_tables as st",
+        "c = st.signer_table_cache",
+        "assert c.enabled is True, c.snapshot()",
+        "assert c.snapshot()['max_bytes'] == 64 << 20, c.snapshot()",
+        "c._reset_for_testing()",
+        "assert c.enabled is True and st.ENABLED is True",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT, VERIFY_SIGNER_TABLE_ENABLED="0",
+               VERIFY_SIGNER_TABLE_BYTES="0")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
