@@ -193,7 +193,35 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    and ingress: the completeness law exact, two collects merged without
    divergence, every wire trace stitched wire -> route -> enqueue ->
    terminal; K1 and K2 must launch in (a) and in (b);
-20. fault domains, last — on the 4-index verifier: ``fail-device`` on
+20. the node's transactions — ``BASELINE.json`` config 2's TxSet at full
+   width: ``vectors.node_txset`` builds 1,000 signed v1
+   ``TransactionEnvelope`` s (single-key, 2-of-3 multisig, two-operation
+   and pre-auth/hashX/signed-payload accounts, about 1,900 ed25519
+   signatures and 50 hashX preimages, 2% of the signatures corrupted) and
+   their account table, the build timed apart. A pass: flush the node's
+   verify cache, decode every envelope (``xdr.runtime.from_bytes``), make
+   every ``transaction_sig_payload``, hash them with ``hash_many`` (K3),
+   collect the candidate signatures (``vectors.collect_candidates``),
+   prefetch them with ``keys.batch_verify_into_cache`` and no backend
+   installed (``default_verifier()``), then run ``SignatureChecker`` on
+   every transaction (``vectors.check_transaction``: the source at its
+   low threshold, each operation's source at its medium one,
+   ``check_all_signatures_used``). Gates: every digest equal to
+   ``transaction_hash`` (hashlib), no ``keys.verify_sig`` cache miss in
+   the checker, every verdict and ``used`` flag equal to the same checker
+   over the pure-Python oracle (``keys.set_verifier_backend(
+   ed25519_ref.verify)``, cache flushed), K1 and K3 launched in the cold
+   passes (signer-table cache off) and K2 and K3 in the hot ones (on,
+   after one untimed pass builds the tables), the dispatch clean. p50 and
+   p90 of 10 passes each, cold and hot, and the ms a pass of each step
+   (hashlib on the same payloads beside the hashing), the accepted and
+   rejected counts. ``metrics.timeseries`` samples every 50 ms through
+   the phase (its prefixes widened to take ``frame.`` beside
+   ``crypto.``), ``tracing.frame_mark()`` once a pass, the verify cache's
+   hits and misses published as ``crypto.verify.cache.*`` gauges: its
+   snapshot must hold those series with no series dropped, and its thread
+   must stop; the anomalies that fired are printed, not gated;
+21. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -207,10 +235,12 @@ just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
 phase 12's calls, K1 and K2 again over phase 13, K1 over phase 16, K1
 and K2 over phase 18 (``launches_service``; (a) alone
 ``launches_service_mixed``), K1 and K2 over phase 19 (a) and (b)
-(``launches_fleet``, ``launches_wire``). After every main-path phase the
-dispatch must be clean: no device fault (no retry, every breaker closed
+(``launches_fleet``, ``launches_wire``), K1 and K3 over phase 20's cold
+passes and K2 and K3 over its hot ones (``launches_node``,
+``launches_node_hot``). After every main-path phase the dispatch must be
+clean: no device fault (no retry, every breaker closed
 and never opened), no audit mismatch, no conviction; only phases 16, 18
-(c) and (e), and 20 expect otherwise. The engine has no host failover, so no
+(c) and (e), and 21 expect otherwise. The engine has no host failover, so no
 row of a card is ever served by the host. Before the last line, one
 ``{"kernels": [...]}`` line holds every kernel's launches, times, bound
 and build; the last line is ``{"ok": true, "device": {...}}``. With no
@@ -242,7 +272,8 @@ try:
                                           native_verify, tenant, vectors,
                                           verify_service)
     from stellar_tpu_torch.crypto.batch_hasher import (MAX_BLOCKS,
-                                                       default_hasher)
+                                                       default_hasher,
+                                                       hash_many)
     from stellar_tpu_torch.crypto.batch_verifier import (
         BatchVerifier, Ed25519HotWorkload, Ed25519Workload, TrickleBatcher,
         default_verifier)
@@ -253,13 +284,15 @@ try:
     from stellar_tpu_torch.parallel.batch_engine import DEFAULT_BUCKET_SIZES
     from stellar_tpu_torch.parallel.signer_tables import (
         TABLE_ENTRIES, build_signer_table, signer_table_cache)
-    from stellar_tpu_torch.utils import (faults, journal, resilience,
-                                         tracing)
+    from stellar_tpu_torch.utils import (faults, journal, metrics,
+                                         resilience, tracing)
     from stellar_tpu_torch.utils.device import resolve_device
     from stellar_tpu_torch.utils.metrics import registry
     from stellar_tpu_torch.utils.timeline import pipeline_timeline
     from stellar_tpu_torch.utils.transfer_ledger import (
         DEFAULT_FP_MAX_BYTES, transfer_ledger)
+    from stellar_tpu_torch.xdr import tx as xtx
+    from stellar_tpu_torch.xdr.runtime import from_bytes
 except ImportError as e:  # run outside the repository
     _IMPORT_ERROR = e
 else:
@@ -375,7 +408,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 20's per-device backoff: far longer than a TxSet call (tens of
+# phase 21's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -436,6 +469,13 @@ FLEET_TENANTS = 8
 FLEET_BACKLOG_SUBS, FLEET_BACKLOG_ROWS = 40, 500
 WIRE_CLIENTS, WIRE_SUBS = 4, 5
 GAP_POLL_S = 0.01
+# phase 20, the node's transactions: the transactions vectors.node_txset
+# builds by default, timed passes cold and hot, the time-series ring's
+# interval, s
+NODE_TXS = 1000
+NODE_PASSES = 10
+NODE_SAMPLE_S = 0.05
+NODE_STEPS = ("decode", "payload", "hash", "collect", "prefetch", "check")
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -3258,6 +3298,189 @@ def _journal_view(fl, srv, wire_tickets):
     return out
 
 
+def _node_pass(envs, accounts, prefetch=True):
+    """One pass of the node's signature path over the envelopes, the
+    verify cache flushed first: ``(verdicts, hashes, payloads, items,
+    checker cache misses, ms a step)``. ``prefetch=False`` leaves every
+    verify to the checker's own ``keys.verify_sig`` (the oracle run)."""
+    nid = vectors.NODE_NETWORK_ID
+    keys.flush_verify_cache()
+    ms = {}
+    t = time.perf_counter()
+    dec = [from_bytes(xtx.TransactionEnvelope, e) for e in envs]
+    t, ms["decode"] = time.perf_counter(), (time.perf_counter() - t) * 1e3
+    payloads = [xtx.transaction_sig_payload(nid, d.value.tx) for d in dec]
+    t, ms["payload"] = time.perf_counter(), (time.perf_counter() - t) * 1e3
+    hashes = hash_many(payloads)
+    t, ms["hash"] = time.perf_counter(), (time.perf_counter() - t) * 1e3
+    items = vectors.collect_candidates(dec, accounts, hashes)
+    t, ms["collect"] = time.perf_counter(), (time.perf_counter() - t) * 1e3
+    if prefetch:
+        keys.batch_verify_into_cache(items)
+    t, ms["prefetch"] = time.perf_counter(), (time.perf_counter() - t) * 1e3
+    misses = keys.get_verify_cache_stats()["misses"]
+    verdicts = [vectors.check_transaction(d, accounts, h)
+                for d, h in zip(dec, hashes)]
+    ms["check"] = (time.perf_counter() - t) * 1e3
+    stats = keys.get_verify_cache_stats()
+    tracing.frame_mark()
+    for k in ("hits", "misses", "size"):
+        registry.gauge(f"crypto.verify.cache.{k}").set(stats[k])
+    return (verdicts, hashes, payloads, items, stats["misses"] - misses,
+            ms)
+
+
+def _node_passes(envs, accounts, want, label):
+    """NODE_PASSES timed passes, each gated: digests, no cache miss in
+    the checker, verdicts and used flags equal to the oracle run's."""
+    walls, steps = [], collections.defaultdict(list)
+    for _ in range(NODE_PASSES):
+        t = time.perf_counter()
+        verdicts, hashes, _p, _i, misses, ms = _node_pass(envs, accounts)
+        walls.append((time.perf_counter() - t) * 1e3)
+        check(hashes == want["hashes"],
+              f"node ({label}): a digest differs from transaction_hash")
+        check(misses == 0, f"node ({label}): the checker missed the verify "
+              f"cache {misses} times")
+        differ = sum(a != b for a, b in zip(verdicts, want["verdicts"]))
+        check(differ == 0, f"node ({label}): {differ} verdicts or used "
+              "flags differ from the oracle run's")
+        for k, v in ms.items():
+            steps[k].append(v)
+    return {"p50_ms": float(np.percentile(walls, 50)),
+            "p90_ms": float(np.percentile(walls, 90)),
+            "steps_p50_ms": {k: float(np.percentile(steps[k], 50))
+                             for k in NODE_STEPS},
+            "steps_p90_ms": {k: float(np.percentile(steps[k], 90))
+                             for k in NODE_STEPS}}
+
+
+def phase_node(rng, info):
+    """Phase 20: the node's transactions on the card. The oracle run
+    first (the pure-Python oracle as the verify backend, no prefetch),
+    then NODE_PASSES cold passes (signer-table cache off) with K1's and
+    K3's counts set to 0 before them and read after, then one untimed
+    pass that builds the tables and NODE_PASSES hot passes with K2's and
+    K3's counts read the same way. The process ring samples through the
+    phase."""
+    t0 = time.perf_counter()
+    envs, accounts = vectors.node_txset(rng)
+    build_s = time.perf_counter() - t0
+    check(len(envs) == NODE_TXS, f"node: {len(envs)} envelopes")
+    check(keys._backend is None, "node: a verify backend is installed")
+    v, h = default_verifier(), default_hasher()
+    check(v.device.type == "cuda" and h.device.type == "cuda",
+          f"node: the default verifier on {v.device}, hasher on {h.device}")
+    ring = metrics.timeseries
+    prefixes = ring._prefixes
+    ring._prefixes = ("crypto.", "frame.")
+    fired0 = registry.counter("metrics.timeseries.anomalies").count
+    ring.start(interval_s=NODE_SAMPLE_S)
+    thread = ring._thread
+    res = {"card": info["smi"], "txs": len(envs), "build_s": build_s}
+    launches = {}
+    try:
+        keys.set_verifier_backend(ref.verify)
+        try:
+            t = time.perf_counter()
+            verdicts, hashes, payloads, items, _m, _ms = _node_pass(
+                envs, accounts, prefetch=False)
+            res["oracle_s"] = time.perf_counter() - t
+        finally:
+            keys.set_verifier_backend(None)
+        want = {"verdicts": verdicts, "hashes": hashes}
+        nid = vectors.NODE_NETWORK_ID
+        check(hashes == [xtx.transaction_hash(nid, from_bytes(
+            xtx.TransactionEnvelope, e).value.tx) for e in envs],
+            "node: hash_many's digests differ from transaction_hash")
+        res["candidates"] = len(items)
+        res["accepted"] = sum(ok for ok, _u in verdicts)
+        res["rejected"] = len(verdicts) - res["accepted"]
+        hl = []
+        for _ in range(NODE_PASSES):
+            t = time.perf_counter()
+            [hashlib.sha256(p).digest() for p in payloads]
+            hl.append((time.perf_counter() - t) * 1e3)
+        res["hashlib_p50_ms"] = float(np.percentile(hl, 50))
+        signer_table_cache.configure(enabled=False)
+        vk.verify_kernel.launches = 0
+        vk.verify_kernel_hot.launches = 0
+        sk.sha256_kernel.launches = 0
+        res["cold"] = _node_passes(envs, accounts, want, "cold")
+        torch.cuda.synchronize()
+        launches["cold"] = {"verify_cold": vk.verify_kernel.launches,
+                            "verify_hot": vk.verify_kernel_hot.launches,
+                            "sha256": sk.sha256_kernel.launches}
+        check(launches["cold"]["verify_cold"] > 0 and
+              launches["cold"]["sha256"] > 0,
+              f"node (cold): K1 and K3 launches {launches['cold']}")
+        signer_table_cache._reset_for_testing()
+        signer_table_cache.configure(enabled=True)
+        t = time.perf_counter()
+        _node_pass(envs, accounts)
+        res["table_build_s"] = time.perf_counter() - t
+        vk.verify_kernel.launches = 0
+        vk.verify_kernel_hot.launches = 0
+        sk.sha256_kernel.launches = 0
+        res["hot"] = _node_passes(envs, accounts, want, "hot")
+        torch.cuda.synchronize()
+        launches["hot"] = {"verify_cold": vk.verify_kernel.launches,
+                           "verify_hot": vk.verify_kernel_hot.launches,
+                           "sha256": sk.sha256_kernel.launches}
+        check(launches["hot"]["verify_hot"] > 0 and
+              launches["hot"]["sha256"] > 0,
+              f"node (hot): K2 and K3 launches {launches['hot']}")
+    finally:
+        signer_table_cache._reset_for_testing()
+        ring.sample_once()
+        ring.stop()
+        ring._prefixes = prefixes
+    check_dispatch_clean([v, h], "node")
+    snap = ring.snapshot()
+    series = snap["series"]
+    for name in ("frame.ledger_close.count", "crypto.verify.cache.hits",
+                 "crypto.verify.cache.misses"):
+        check(name in series, f"node: the ring holds no {name} series")
+    # a cumulative series' first sample is its baseline (delta 0): the
+    # marks before the meter's first tick are not counted
+    frames = sum(val for _t, val in
+                 series["frame.ledger_close.count"]["samples"])
+    check(NODE_PASSES <= frames <= 2 * NODE_PASSES + 2,
+          f"node: the ring saw {frames} of {2 * NODE_PASSES + 2} frame "
+          "marks")
+    check(snap["sampling"]["dropped_series"] == 0,
+          f"node: the ring dropped {snap['sampling']['dropped_series']} "
+          f"series of {snap['sampling']['tracked_series']}")
+    check(not snap["sampling"]["running"] and not thread.is_alive(),
+          "node: the ring's sampler thread did not stop")
+    res["ring"] = {"ticks": snap["sampling"]["ticks"],
+                   "tracked_series": snap["sampling"]["tracked_series"],
+                   "anomalies": registry.counter(
+                       "metrics.timeseries.anomalies").count - fired0,
+                   "anomaly_series": [a["series"] for a in
+                                      snap["anomalies"]][-8:]}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[node] {len(envs)} transactions, {res['candidates']} candidate "
+          f"signatures, built in {build_s:.1f} s; oracle run "
+          f"{res['oracle_s']:.1f} s; accepted {res['accepted']}, rejected "
+          f"{res['rejected']}; card {info['smi']}")
+    for mode in ("cold", "hot"):
+        r = res[mode]
+        parts = ", ".join(f"{k} {r['steps_p50_ms'][k]:.3f} / "
+                          f"{r['steps_p90_ms'][k]:.3f}" for k in NODE_STEPS)
+        print(f"[node] {mode}: pass p50 {r['p50_ms']:.3f} ms, p90 "
+              f"{r['p90_ms']:.3f} ms over {NODE_PASSES} passes; step p50 / "
+              f"p90 ms: {parts}; launches {launches[mode]}")
+    print(f"[node] hashlib on the same {len(payloads)} payloads p50 "
+          f"{res['hashlib_p50_ms']:.3f} ms; tables built in "
+          f"{res['table_build_s']:.1f} s; ring: {res['ring']['ticks']} "
+          f"ticks, {res['ring']['tracked_series']} series, none dropped, "
+          f"{res['ring']['anomalies']} anomalies fired "
+          f"{res['ring']['anomaly_series']}; phase {res['seconds']:.1f} s")
+    return res, launches
+
+
 def phase_faults(v, items, want):
     """The reference's device-domain scenarios on the SPLIT-index
     verifier, cache off: fail-device 1, probation healing, corrupt-device
@@ -3433,6 +3656,7 @@ def main() -> int:
         dev, rng, txset_items, txset_want, info)
     fleet_res, fleet_launches = phase_fleet(dev, rng, service_want, info)
     del service_want
+    node, node_launches = phase_node(rng, info)
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
@@ -3449,6 +3673,8 @@ def main() -> int:
                      launches_service_mixed=service_a["verify_cold"],
                      launches_fleet=fleet_launches["fleet"]["verify_cold"],
                      launches_wire=fleet_launches["wire"]["verify_cold"],
+                     launches_node=node_launches["cold"]["verify_cold"],
+                     launches_node_hot=node_launches["hot"]["verify_cold"],
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -3458,12 +3684,16 @@ def main() -> int:
                      launches_service_mixed=service_a["verify_hot"],
                      launches_fleet=fleet_launches["fleet"]["verify_hot"],
                      launches_wire=fleet_launches["wire"]["verify_hot"],
+                     launches_node=node_launches["hot"]["verify_hot"],
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
                      hashing["launches"], hashing["rows_compared"],
                      hashing["max_abs_err"], hashing["by_batch"], HASH_MSGS,
-                     info["smi"], **builds["sha256"]),
+                     info["smi"],
+                     launches_node=node_launches["cold"]["sha256"],
+                     launches_node_hot=node_launches["hot"]["sha256"],
+                     **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
                      k4_launches, k4_compared, 0.0, k4_batch,
@@ -3494,7 +3724,8 @@ def main() -> int:
         "split_txset": split, "audit_cost": audit_cost,
         "transfer_cost": transfer_cost,
         "deadline": deadline, "probe": probe, "service": service,
-        "fleet": fleet_res, "fault_domains": fault_domains, "card": info["smi"]}))
+        "fleet": fleet_res, "node": node, "fault_domains": fault_domains,
+        "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

@@ -1,5 +1,5 @@
-"""The node's verify cache and backend seam — the port's copy of the
-verify half of ``stellar_tpu/crypto/keys.py``.
+"""The node's signing identity, verify cache and backend seam — the
+port's copy of ``stellar_tpu/crypto/keys.py``.
 
 ``verify_sig`` is the ``PubKeyUtils::verifySig`` equivalent: every
 single-signature verification funnels through it, with a 0xffff-entry
@@ -26,25 +26,33 @@ card; with no card it raises, where the reference verifies on the host
 ``MIN_DEVICE_BATCH`` it uses what ``verify_sig`` would: the installed
 backend or the oracle.
 
-``PublicKey``, ``SecretKey``, strkey and signing are not ported yet
-(ROADMAP.md, queue 1): keys here are 32 raw bytes.
+The identity half is the reference's: :class:`PublicKey` (32 bytes with
+StrKey, XDR and the signature hint) and :class:`SecretKey` (a 32-byte
+seed; signing through the port's pure-Python
+:func:`~stellar_tpu_torch.crypto.ed25519_ref.sign`, RFC 8032, so its
+signatures are byte for byte the reference's). ``verify_sig`` takes a
+:class:`PublicKey` or 32 raw bytes.
 """
 
 from __future__ import annotations
 
-import hashlib
+import os
 import threading
 from typing import Callable, Optional
 
 from stellar_tpu_torch.crypto import ed25519_ref as _ref
+from stellar_tpu_torch.crypto import strkey as _strkey
+from stellar_tpu_torch.crypto.sha import sha256
 from stellar_tpu_torch.utils.cache import RandomEvictionCache
 
 __all__ = [
-    "VERIFY_CACHE_SIZE", "MIN_DEVICE_BATCH", "verify_sig",
-    "cached_verify_sig", "seed_verify_cache", "batch_verify_into_cache",
-    "seed_cache_assume_valid", "set_verifier_backend",
-    "accelerated_verify_available", "get_verifier_backend_name",
+    "SecretKey", "PublicKey", "verify_sig", "cached_verify_sig",
+    "seed_verify_cache", "set_verifier_backend",
+    "get_verifier_backend_name",
     "get_verify_cache_stats", "flush_verify_cache",
+    "sign_ops_per_second", "verify_ops_per_second",
+    "VERIFY_CACHE_SIZE", "MIN_DEVICE_BATCH", "batch_verify_into_cache",
+    "seed_cache_assume_valid", "accelerated_verify_available",
 ]
 
 VERIFY_CACHE_SIZE = 0xFFFF
@@ -55,6 +63,108 @@ MIN_DEVICE_BATCH = 32
 _cache_lock = threading.Lock()
 _verify_cache: RandomEvictionCache = RandomEvictionCache(VERIFY_CACHE_SIZE)
 _backend: Optional[Callable[[bytes, bytes, bytes], bool]] = None
+
+
+class PublicKey:
+    """32-byte ed25519 public key with StrKey and XDR conveniences."""
+
+    __slots__ = ("raw",)
+
+    def __init__(self, raw: bytes):
+        if len(raw) != 32:
+            raise ValueError("public key must be 32 bytes")
+        self.raw = bytes(raw)
+
+    @classmethod
+    def from_strkey(cls, s: str) -> "PublicKey":
+        return cls(_strkey.decode_account(s))
+
+    def to_strkey(self) -> str:
+        return _strkey.encode_account(self.raw)
+
+    def to_xdr(self):
+        from stellar_tpu_torch.xdr.types import account_id
+        return account_id(self.raw)
+
+    @classmethod
+    def from_xdr(cls, v) -> "PublicKey":
+        return cls(v.value)
+
+    def hint(self) -> bytes:
+        """Signature hint: the key's last 4 bytes (reference
+        ``SignatureUtils::getHint``)."""
+        return self.raw[-4:]
+
+    def __eq__(self, other):
+        return isinstance(other, PublicKey) and self.raw == other.raw
+
+    def __hash__(self):
+        return hash(self.raw)
+
+    def __repr__(self):
+        return f"PublicKey({self.to_strkey()})"
+
+
+class SecretKey:
+    """Seed-based ed25519 secret key (reference ``SecretKey.h:22``)."""
+
+    __slots__ = ("seed", "_pk")
+
+    def __init__(self, seed: bytes):
+        if len(seed) != 32:
+            raise ValueError("seed must be 32 bytes")
+        self.seed = bytes(seed)
+        self._pk: Optional[PublicKey] = None
+
+    @classmethod
+    def random(cls) -> "SecretKey":
+        return cls(os.urandom(32))
+
+    @classmethod
+    def from_strkey_seed(cls, s: str) -> "SecretKey":
+        return cls(_strkey.decode_seed(s))
+
+    @classmethod
+    def pseudo_random_for_testing(cls) -> "SecretKey":
+        """A key from the process ``random`` stream, not a CSPRNG
+        (reference ``SecretKey.h:66-77``)."""
+        import random
+        return cls(bytes(random.getrandbits(8) for _ in range(32)))
+
+    @classmethod
+    def from_seed_str(cls, s: str) -> "SecretKey":
+        """A key from any string: seed = SHA-256(s) (the reference tests'
+        getAccount pattern)."""
+        return cls(sha256(s.encode() if isinstance(s, str) else s))
+
+    def to_strkey_seed(self) -> str:
+        return _strkey.encode_seed(self.seed)
+
+    @property
+    def public_key(self) -> PublicKey:
+        if self._pk is None:
+            self._pk = PublicKey(_ref.secret_to_public(self.seed))
+        return self._pk
+
+    def get_public_key(self) -> PublicKey:
+        return self.public_key
+
+    def sign(self, msg: bytes) -> bytes:
+        return _ref.sign(self.seed, msg)
+
+    def sign_decorated(self, msg: bytes):
+        from stellar_tpu_torch.xdr.tx import DecoratedSignature
+        return DecoratedSignature(hint=self.public_key.hint(),
+                                  signature=self.sign(msg))
+
+    def __eq__(self, other):
+        return isinstance(other, SecretKey) and self.seed == other.seed
+
+    def __hash__(self):
+        return hash(self.seed)
+
+    def __repr__(self):
+        return f"SecretKey({self.public_key.to_strkey()})"
 
 
 def set_verifier_backend(fn: Optional[Callable[[bytes, bytes, bytes], bool]]):
@@ -101,13 +211,13 @@ def get_verifier_backend_name() -> str:
 def _cache_key(pk: bytes, msg: bytes, sig: bytes) -> bytes:
     # pk and sig are checked to be 32 and 64 bytes before this is
     # called, so the concatenation's field boundaries are unambiguous
-    return hashlib.sha256(pk + sig + msg).digest()
+    return sha256(pk + sig + msg)
 
 
-def verify_sig(pk: bytes, msg: bytes, sig: bytes) -> bool:
+def verify_sig(pk, msg: bytes, sig: bytes) -> bool:
     """The ``PubKeyUtils::verifySig`` equivalent: the cache, then the
     backend (the oracle when none is installed)."""
-    raw = bytes(pk)
+    raw = pk.raw if isinstance(pk, PublicKey) else bytes(pk)
     if len(sig) != 64 or len(raw) != 32:
         return False
     key = _cache_key(raw, msg, sig)
@@ -122,11 +232,11 @@ def verify_sig(pk: bytes, msg: bytes, sig: bytes) -> bool:
     return ok
 
 
-def cached_verify_sig(pk: bytes, msg: bytes, sig: bytes) -> Optional[bool]:
+def cached_verify_sig(pk, msg: bytes, sig: bytes) -> Optional[bool]:
     """Cache-only lookup of an earlier ``verify_sig`` answer (``None`` on
     a miss). Malformed lengths answer ``False``, as ``verify_sig``
     does."""
-    raw = bytes(pk)
+    raw = pk.raw if isinstance(pk, PublicKey) else bytes(pk)
     if len(sig) != 64 or len(raw) != 32:
         return False
     with _cache_lock:
@@ -208,3 +318,28 @@ def get_verify_cache_stats() -> dict:
     with _cache_lock:
         return {"hits": _verify_cache.hits, "misses": _verify_cache.misses,
                 "size": len(_verify_cache)}
+
+
+def sign_ops_per_second(iterations: int = 200) -> float:
+    """Reference ``SecretKey::benchmarkOpsPerSecond`` (sign half)."""
+    import time
+    sk = SecretKey.random()
+    msg = b"benchmark-payload" * 4
+    t0 = time.perf_counter()
+    for _ in range(iterations):
+        sk.sign(msg)
+    return iterations / (time.perf_counter() - t0)
+
+
+def verify_ops_per_second(iterations: int = 200) -> float:
+    """The verify half: one ``verify_sig`` a flushed cache."""
+    import time
+    sk = SecretKey.random()
+    msg = b"benchmark-payload" * 4
+    sig = sk.sign(msg)
+    pk = sk.public_key
+    t0 = time.perf_counter()
+    for _ in range(iterations):
+        flush_verify_cache()
+        verify_sig(pk, msg, sig)
+    return iterations / (time.perf_counter() - t0)

@@ -23,7 +23,15 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
 * :func:`r16_overflow_rows` — rows with s or h at or above
   :data:`R16_OVERFLOW` (every s >= 9 * 2^252 among them), where the top
   digit selects the zero point: R = 32 zero bytes (bit True) on even
-  rows, R = encode(s*B + h*(-A)) (bit False) on odd ones.
+  rows, R = encode(s*B + h*(-A)) (bit False) on odd ones;
+* :func:`node_txset` — a set of signed ``TransactionEnvelope`` XDR blobs
+  and the account table they are checked against: single-key, 2-of-3
+  multisig, two-operation and pre-auth/hashX/signed-payload accounts,
+  some signatures corrupted;
+* :func:`collect_candidates` — every (pk, msg, sig) triple such a set
+  may verify, as the node's TxSet prefetch collects them;
+* :func:`check_transaction` — a transaction's signature verdict and the
+  checker's ``used`` flags, in the order the node checks them.
 """
 
 from __future__ import annotations
@@ -31,11 +39,19 @@ from __future__ import annotations
 import numpy as np
 
 from stellar_tpu_torch.crypto import ed25519_ref as ref
+from stellar_tpu_torch.crypto.keys import SecretKey
+from stellar_tpu_torch.crypto.sha import sha256
 from stellar_tpu_torch.parallel.signer_tables import build_signer_table
+from stellar_tpu_torch.tx import signature_utils as su
+from stellar_tpu_torch.tx.signature_checker import SignatureChecker
+from stellar_tpu_torch.xdr import tx as xtx
+from stellar_tpu_torch.xdr import types as xt
+from stellar_tpu_torch.xdr.runtime import to_bytes
 
 __all__ = ["keypair", "valid_items", "edge_corpus", "matching_rows",
            "random_rows", "hot_matching_rows", "r16_matching_rows",
-           "r16_overflow_rows", "R16_OVERFLOW"]
+           "r16_overflow_rows", "R16_OVERFLOW", "NODE_NETWORK_ID",
+           "node_txset", "collect_candidates", "check_transaction"]
 
 # The least scalar whose signed radix-16 top digit exceeds the 8-entry
 # table: 0x8777...78 (an 8, 62 sevens, an 8). Digits in [-8, 8) below
@@ -231,3 +247,262 @@ def hot_matching_rows(rng: np.random.Generator, n: int):
         s[i] = np.frombuffer(sv.to_bytes(32, "little"), np.uint8)
         h[i] = np.frombuffer(hv.to_bytes(32, "little"), np.uint8)
     return tables, r, s, h
+
+
+# the network id the node's traffic is signed for: SHA-256 of the public
+# test network's passphrase
+NODE_NETWORK_ID = sha256(b"Test SDF Network ; September 2015")
+
+# the protocol version the checker is handed (it reads none of it)
+NODE_PROTOCOL_VERSION = 21
+
+
+def _signer(arm, value, weight: int):
+    return xt.Signer(key=xt.SignerKey.make(arm, value), weight=weight)
+
+
+def _account(sk: SecretKey, seq: int, thresholds, signers=()):
+    return xt.AccountEntry(
+        accountID=xt.account_id(sk.public_key.raw), balance=10**10,
+        seqNum=seq, numSubEntries=len(signers), inflationDest=None,
+        flags=0, homeDomain=b"", thresholds=bytes(thresholds),
+        signers=list(signers), ext=xt.AccountEntry._types[9].make(0))
+
+
+def _operation(rng: np.random.Generator, source=None):
+    """A payment or a manage-sell-offer, so payload lengths vary."""
+    src = None if source is None else xtx.muxed_account(source)
+    if rng.random() < 0.5:
+        body = xtx.OperationBody.make(
+            xtx.OperationType.PAYMENT, xtx.PaymentOp(
+                destination=xtx.muxed_account(rng.bytes(32)),
+                asset=xt.NATIVE_ASSET,
+                amount=int(rng.integers(1, 10**9))))
+    else:
+        code = bytes(rng.choice(list(b"ABCDEFGHXYZ"), 4).tolist())
+        body = xtx.OperationBody.make(
+            xtx.OperationType.MANAGE_SELL_OFFER, xtx.ManageSellOfferOp(
+                selling=xt.NATIVE_ASSET,
+                buying=xt.asset_alphanum4(code, xt.account_id(
+                    rng.bytes(32))),
+                amount=int(rng.integers(1, 10**9)),
+                price=xt.Price(n=int(rng.integers(1, 1000)),
+                               d=int(rng.integers(1, 1000))),
+                offerID=0))
+    return xtx.Operation(sourceAccount=src, body=body)
+
+
+def _transaction(rng: np.random.Generator, source: bytes, seq: int, ops):
+    n = int(rng.integers(0, 29))
+    memo = xtx.Memo.make(xtx.MemoType.MEMO_TEXT, bytes(
+        rng.integers(0x20, 0x7f, n, dtype=np.uint8))) if n else \
+        xtx.MEMO_NONE
+    return xtx.Transaction(
+        sourceAccount=xtx.muxed_account(source), fee=100 * len(ops),
+        seqNum=seq,
+        cond=xtx.Preconditions.make(xtx.PreconditionType.PRECOND_NONE),
+        memo=memo, operations=list(ops),
+        ext=xtx.Transaction._types[6].make(0))
+
+
+def node_txset(rng: np.random.Generator, single: int = 100,
+               multisig: int = 700, two_op: int = 150, special: int = 50,
+               corrupt: float = 0.02, short_multisig: int = 5,
+               network_id: bytes = NODE_NETWORK_ID):
+    """A TxSet's v1 envelopes, as XDR bytes, and the account table they
+    are checked against (raw account key -> ``AccountEntry``), in a
+    shuffled order:
+
+    * ``single`` transactions from single-key accounts (master weight 1,
+      thresholds 0), one signature each; one of them carries an extra
+      signature from a key no account knows, which no signer uses;
+    * ``multisig`` from 2-of-3 accounts (master and two ed25519 signers,
+      weight 1 each, thresholds 2), signed by two of the three keys, the
+      first ``short_multisig`` of them by one only;
+    * ``two_op`` whose second operation's source is another single-key
+      account, signed by both masters;
+    * ``special`` from accounts with a pre-auth-tx signer (another
+      transaction's hash, so it never counts), a hashX signer and an
+      ed25519 signed-payload signer over the transaction's own hash, all
+      weight 1, thresholds 3: the master's signature, the signed
+      payload's and the hashX preimage.
+
+    Each operation is a payment or a manage-sell-offer, each memo a text
+    of 0-28 bytes. About ``corrupt`` of the ed25519 signatures have one
+    byte flipped."""
+    T = xt.SignerKeyType
+    accounts: dict = {}
+    built = []     # (transaction, its decorated signatures)
+    extras = []    # (key, seq, signed-payload signer, hashX, tx hash)
+    seq = 1 << 32
+
+    def key() -> SecretKey:
+        return SecretKey(rng.bytes(32))
+
+    kinds = ["single"] * single + ["multisig"] * multisig + \
+        ["two_op"] * two_op + ["special"] * special
+    extra_at = 0 if single else None
+    for i, kind in enumerate(kinds):
+        seq += 1
+        src = key()
+        if kind == "two_op":
+            other = key()
+            tx = _transaction(rng, src.public_key.raw, seq, [
+                _operation(rng), _operation(rng, other.public_key.raw)])
+        else:
+            tx = _transaction(rng, src.public_key.raw, seq,
+                              [_operation(rng)])
+        h = sha256(xtx.transaction_sig_payload(network_id, tx))
+        if kind == "single":
+            accounts[src.public_key.raw] = _account(src, seq, (1, 0, 0, 0))
+            sigs = [src.sign_decorated(h)]
+            if i == extra_at:
+                sigs.append(key().sign_decorated(h))
+        elif kind == "multisig":
+            k1, k2 = key(), key()
+            accounts[src.public_key.raw] = _account(src, seq, (1, 2, 2, 2), [
+                _signer(T.SIGNER_KEY_TYPE_ED25519, k.public_key.raw, 1)
+                for k in (k1, k2)])
+            trio = [src, k1, k2]
+            pick = sorted(rng.choice(3, 2, replace=False).tolist())
+            sigs = [trio[j].sign_decorated(h) for j in pick]
+            if i - single < short_multisig:
+                sigs = sigs[:1]
+        elif kind == "two_op":
+            accounts[src.public_key.raw] = _account(src, seq, (1, 0, 0, 0))
+            accounts[other.public_key.raw] = _account(other, seq,
+                                                      (1, 0, 0, 0))
+            sigs = [src.sign_decorated(h), other.sign_decorated(h)]
+        else:
+            payload_key, preimage = key(), rng.bytes(32)
+            sp = xt.SignerKeyEd25519SignedPayload(
+                ed25519=payload_key.public_key.raw, payload=h)
+            sigs = [src.sign_decorated(h),
+                    xtx.DecoratedSignature(
+                        hint=su.signed_payload_hint(sp),
+                        signature=payload_key.sign(h)),
+                    su.sign_hash_x(preimage)]
+            extras.append((src, seq, sp, sha256(preimage), h))
+        built.append((tx, sigs))
+    # each pre-auth-tx signer names the next special transaction's hash
+    for j, (src, sq, sp, hx, _h) in enumerate(extras):
+        other = extras[(j + 1) % len(extras)][4]
+        accounts[src.public_key.raw] = _account(src, sq, (1, 3, 3, 3), [
+            _signer(T.SIGNER_KEY_TYPE_PRE_AUTH_TX, other, 1),
+            _signer(T.SIGNER_KEY_TYPE_HASH_X, hx, 1),
+            _signer(T.SIGNER_KEY_TYPE_ED25519_SIGNED_PAYLOAD, sp, 1)])
+    envs = []
+    for tx, sigs in built:
+        out = []
+        for d in sigs:
+            if len(d.signature) == 64 and rng.random() < corrupt:
+                k = int(rng.integers(0, 64))
+                sig = bytearray(d.signature)
+                sig[k] ^= 1 << int(rng.integers(0, 8))
+                d = xtx.DecoratedSignature(hint=d.hint,
+                                           signature=bytes(sig))
+            out.append(d)
+        envs.append(to_bytes(xtx.TransactionEnvelope, xtx.TransactionEnvelope
+                             .make(xt.EnvelopeType.ENVELOPE_TYPE_TX,
+                                   xtx.TransactionV1Envelope(
+                                       tx=tx, signatures=out))))
+    order = rng.permutation(len(envs))
+    return [envs[j] for j in order], accounts
+
+
+def _account_ids(tx) -> list:
+    """The transaction's source, then each distinct operation source."""
+    ids = [xtx.muxed_ed25519(tx.sourceAccount)]
+    for op in tx.operations:
+        if op.sourceAccount is not None:
+            raw = xtx.muxed_ed25519(op.sourceAccount)
+            if raw not in ids:
+                ids.append(raw)
+    return ids
+
+
+def _extra_signers(tx) -> list:
+    c = tx.cond
+    return list(c.value.extraSigners) \
+        if c.arm == xtx.PreconditionType.PRECOND_V2 else []
+
+
+def collect_candidates(envs, accounts, hashes) -> list:
+    """Every (pk, msg, sig) triple the node may verify for these decoded
+    v1 envelopes (``TransactionEnvelope`` values), ``hashes`` their
+    contents hashes: for each signature, the master key and signers of
+    the transaction's source and of each operation source, then the
+    extra signers, kept where the hint matches.
+
+    This follows the JAX package's ``herder/tx_set.py:658-723``
+    (``collect_signature_triples``, ``_collect_for_account``,
+    ``_collect_for_signer_key``) line for line, over the port's
+    ``signature_utils``, with the account table in place of the ledger.
+    It gives way to the ported ``herder/tx_set.py``."""
+    items = []
+    for env, h in zip(envs, hashes):
+        if env.arm != xt.EnvelopeType.ENVELOPE_TYPE_TX:
+            raise ValueError("only v1 envelopes are collected")
+        tx = env.value.tx
+        accts = [accounts.get(raw) for raw in _account_ids(tx)]
+        for sig in env.value.signatures:
+            for acc in accts:
+                _collect_for_account(acc, h, sig, items)
+            for sk in _extra_signers(tx):
+                _collect_for_signer_key(sk, h, sig, items)
+    return items
+
+
+def _collect_for_account(acc, h: bytes, sig, items):
+    if acc is None:
+        return
+    pk = acc.accountID.value
+    if su.does_hint_match(pk, sig.hint):
+        items.append((pk, h, sig.signature))
+    for s in acc.signers:
+        _collect_for_signer_key(s.key, h, sig, items)
+
+
+def _collect_for_signer_key(key, h: bytes, sig, items):
+    if key.arm == xt.SignerKeyType.SIGNER_KEY_TYPE_ED25519:
+        if su.does_hint_match(key.value, sig.hint):
+            items.append((key.value, h, sig.signature))
+    elif key.arm == xt.SignerKeyType.SIGNER_KEY_TYPE_ED25519_SIGNED_PAYLOAD:
+        if sig.hint == su.signed_payload_hint(key.value):
+            items.append((key.value.ed25519, key.value.payload,
+                          sig.signature))
+
+
+def _signers_for(acc) -> list:
+    """Master key (when its weight is not 0) and the account's signers,
+    as ``TransactionFrame::checkSignature`` lists them."""
+    signers = []
+    if acc.thresholds[0]:
+        signers.append(_signer(xt.SignerKeyType.SIGNER_KEY_TYPE_ED25519,
+                               acc.accountID.value, acc.thresholds[0]))
+    signers.extend(acc.signers)
+    return signers
+
+
+def check_transaction(env, accounts, h: bytes):
+    """``(verdict, used)`` of a decoded v1 envelope against the account
+    table: one checker over its signatures, the source account at its
+    low threshold, then each operation's source at its medium threshold
+    (payments and offers), then every signature used — the order of the
+    JAX package's ``TransactionFrame`` (``check_signature_for_account``
+    in ``common_valid``, then ``process_signatures``). A missing account
+    fails. ``used`` is the checker's flags when it stopped."""
+    tx = env.value.tx
+    checker = SignatureChecker(NODE_PROTOCOL_VERSION, h,
+                               env.value.signatures)
+    src = accounts.get(xtx.muxed_ed25519(tx.sourceAccount))
+    if src is None or not checker.check_signature(
+            _signers_for(src), src.thresholds[xt.THRESHOLD_LOW]):
+        return False, list(checker.used)
+    for op in tx.operations:
+        acc = src if op.sourceAccount is None else \
+            accounts.get(xtx.muxed_ed25519(op.sourceAccount))
+        if acc is None or not checker.check_signature(
+                _signers_for(acc), acc.thresholds[xt.THRESHOLD_MED]):
+            return False, list(checker.used)
+    return checker.check_all_signatures_used(), list(checker.used)

@@ -43,9 +43,7 @@ counter tracks (a device's work in flight, ``busy_frac``, cumulative
 transfer bytes), merged into
 :meth:`stellar_tpu_torch.utils.tracing.FlightRecorder.to_chrome_trace`.
 
-Left out (ROADMAP.md, queue 1 step 2): the time-series and SLO classes,
-which serve the verify service's seam, and ``configure``, which sizes the
-ring from the application's config.
+:meth:`PipelineTimeline.configure` sizes the ring.
 """
 
 from __future__ import annotations
@@ -195,6 +193,16 @@ class PipelineTimeline:
     # the span clock, so records and spans share one time axis
     def _now(self) -> float:
         return tracing._now_ms()
+
+    def configure(self, resolves: Optional[int] = None) -> None:
+        """Set how many resolves the ring keeps (the reference's
+        PIPELINE_TIMELINE_RESOLVES, at least 4); None keeps it."""
+        if resolves is None:
+            return
+        cap = max(4, int(resolves))
+        with self._lock:
+            if cap != self._ring.maxlen:
+                self._ring = deque(self._ring, maxlen=cap)
 
     # ---------------- per-resolve recording ----------------
 

@@ -34,9 +34,9 @@ decision.
 ``trace_timeline`` stitches one trace's records across the wire, the
 fleet router and the replicas (``stitch``), and ``to_chrome_trace
 (by_replica=True)`` puts each fleet replica on a process track of its
-own. Left out (ROADMAP.md, queue 1 step 3): ``current_zones``,
-``FlightRecorder.configure`` and ``frame_mark``, which the ledger close
-calls.
+own. :func:`current_zones` lists the live span names of a thread;
+:func:`frame_mark` marks the ``frame.ledger_close`` meter once a closed
+ledger.
 """
 
 from __future__ import annotations
@@ -50,9 +50,10 @@ from typing import Dict, List, Optional
 
 from stellar_tpu_torch.utils.metrics import registry
 
-__all__ = ["span", "zone", "LogSlowExecution", "current_context",
-           "span_context", "FlightRecorder",
-           "flight_recorder", "span_totals", "trace_matches"]
+__all__ = ["span", "zone", "LogSlowExecution", "current_zones",
+           "current_context", "span_context", "frame_mark",
+           "FlightRecorder", "flight_recorder", "span_totals",
+           "trace_matches"]
 
 _log = logging.getLogger("stellar_tpu_torch.perf")
 
@@ -74,6 +75,12 @@ def _stack() -> list:
     if s is None:
         s = _tls.zones = []
     return s
+
+
+def current_zones() -> List[str]:
+    """The live zone and span names of this thread (innermost last);
+    context anchors are invisible."""
+    return [e.name for e in _stack() if e.name is not None]
 
 
 def current_context() -> Optional[int]:
@@ -119,6 +126,16 @@ class FlightRecorder:
         self._dumps: deque = deque(maxlen=8)
         self._dumps_total = 0
         self._recorded_total = 0
+
+    def configure(self, capacity: Optional[int] = None) -> None:
+        """Set the ring's capacity (the reference's FLIGHT_RECORDER_SPANS,
+        at least 16); None keeps it. The newest records stay."""
+        if capacity is None:
+            return
+        cap = max(16, int(capacity))
+        with self._lock:
+            if cap != self._ring.maxlen:
+                self._ring = deque(self._ring, maxlen=cap)
 
     # ---------------- span lifecycle ----------------
 
@@ -543,12 +560,13 @@ class zone(span):
 
 class _Anchor:
     """A stack entry holding a parent span id borrowed from another
-    thread; never timed."""
+    thread: invisible to :func:`current_zones`, never timed."""
 
-    __slots__ = ("span_id",)
+    __slots__ = ("span_id", "name")
 
     def __init__(self, span_id: int):
         self.span_id = span_id
+        self.name = None
 
     def _abandon(self):
         pass
@@ -616,3 +634,9 @@ class LogSlowExecution:
             _log.warning("'%s' hung for %.0f ms (threshold %.0f ms)",
                          self.name, dt_ms, self.threshold_ms)
         return False
+
+
+def frame_mark() -> None:
+    """A closed ledger's frame boundary (the reference's ``FrameMark`` at
+    the end of closeLedger, ``LedgerManagerImpl.cpp:1121``)."""
+    registry.meter("frame.ledger_close").mark()

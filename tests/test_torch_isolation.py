@@ -44,6 +44,12 @@ def test_forbidden_imports_absent():
     for module in ("residency", "hostbuf", "signer_tables"):
         assert os.path.join(ROOT, "stellar_tpu_torch", "parallel",
                             f"{module}.py") in files
+    for module in ("crypto/sha", "crypto/strkey", "xdr/runtime",
+                   "xdr/types", "xdr/contract", "xdr/tx", "xdr/scp",
+                   "xdr/results", "xdr/ledger", "xdr/overlay",
+                   "tx/signature_utils", "tx/signature_checker"):
+        assert os.path.join(ROOT, "stellar_tpu_torch",
+                            f"{module}.py") in files
     for path in files:
         with open(path) as f:
             hits = _FORBIDDEN.findall(f.read())
@@ -172,6 +178,86 @@ def test_import_and_verify_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "[True, False, True]"
+
+
+def test_node_transactions_with_jax_blocked():
+    """A fresh interpreter in which importing jax or stellar_tpu fails
+    imports the XDR, identity and transaction-signature modules and runs
+    a miniature of ``chip_smoke.py`` phase 20 on the CPU: 40 transactions
+    from ``vectors.node_txset`` decoded, hashed through ``hash_many``,
+    their candidates prefetched through a CPU verifier, every checker
+    verdict with no cache miss, equal to the same checker over the
+    pure-Python oracle; the time-series ring samples ``frame_mark`` and
+    the verify cache's gauges, and its thread stops."""
+    code = "\n".join([
+        "import sys, hashlib",
+        "sys.modules['jax'] = None",
+        "sys.modules['stellar_tpu'] = None",
+        "import numpy as np",
+        "from stellar_tpu_torch.crypto import ed25519_ref, keys, vectors",
+        "from stellar_tpu_torch.crypto import strkey, sha",
+        "from stellar_tpu_torch.crypto.batch_hasher import hash_many",
+        "from stellar_tpu_torch.crypto.batch_verifier import BatchVerifier",
+        "from stellar_tpu_torch.tx import signature_checker",
+        "from stellar_tpu_torch.utils import metrics, tracing",
+        "from stellar_tpu_torch.xdr import ledger, overlay, results, scp",
+        "from stellar_tpu_torch.xdr import tx as xtx",
+        "from stellar_tpu_torch.xdr.runtime import from_bytes",
+        "sk = keys.SecretKey(bytes(range(32)))",
+        "assert keys.PublicKey.from_strkey(sk.public_key.to_strkey()) "
+        "== sk.public_key",
+        "ring = metrics.TimeSeriesRing(metrics.registry, "
+        "prefixes=('crypto.', 'frame.'))",
+        "ring.start(interval_s=0.02)",
+        "rng = np.random.default_rng(53)",
+        "envs, accounts = vectors.node_txset(rng, single=5, multisig=22, "
+        "two_op=8, special=5, corrupt=0.06, short_multisig=2)",
+        "nid = vectors.NODE_NETWORK_ID",
+        "def run(prefetch):",
+        "    keys.flush_verify_cache()",
+        "    dec = [from_bytes(xtx.TransactionEnvelope, e) for e in envs]",
+        "    pays = [xtx.transaction_sig_payload(nid, d.value.tx) "
+        "for d in dec]",
+        "    hs = hash_many(pays, device='cpu')",
+        "    assert hs == [hashlib.sha256(p).digest() for p in pays]",
+        "    if prefetch:",
+        "        keys.batch_verify_into_cache(",
+        "            vectors.collect_candidates(dec, accounts, hs))",
+        "    before = keys.get_verify_cache_stats()['misses']",
+        "    out = [vectors.check_transaction(d, accounts, h) "
+        "for d, h in zip(dec, hs)]",
+        "    tracing.frame_mark()",
+        "    st = keys.get_verify_cache_stats()",
+        "    for k in ('hits', 'misses'):",
+        "        g = metrics.registry.gauge(f'crypto.verify.cache.{k}')",
+        "        g.set(st[k])",
+        "    return out, st['misses'] - before",
+        "v = BatchVerifier(device='cpu', bucket_sizes=(16,)).install()",
+        "got, misses = run(True)",
+        "assert misses == 0, misses",
+        "keys.set_verifier_backend(ed25519_ref.verify)",
+        "want, oracle_misses = run(False)",
+        "assert oracle_misses > 0",
+        "assert got == want, (got, want)",
+        "assert 0 < [ok for ok, _ in got].count(False) < 40",
+        "ring.sample_once()",
+        "ring.stop()",
+        "snap = ring.snapshot()",
+        "assert not snap['sampling']['running']",
+        "assert snap['sampling']['dropped_series'] == 0",
+        "for name in ('frame.ledger_close.count', "
+        "'crypto.verify.cache.hits', 'crypto.verify.cache.misses'):",
+        "    assert name in snap['series'], sorted(snap['series'])",
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == "
+        "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
+        "sys.modules if sys.modules[m] is not None)",
+        "print(sum(ok for ok, _ in got))",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 0 < int(proc.stdout.strip().splitlines()[-1]) < 40
 
 
 def test_node_verify_seam():
