@@ -221,7 +221,36 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    hits and misses published as ``crypto.verify.cache.*`` gauges: its
    snapshot must hold those series with no series dropped, and its thread
    must stop; the anomalies that fired are printed, not gated;
-21. fault domains, last — on the 4-index verifier: ``fail-device`` on
+21. the node's TxSet — phase 20's 1,000 transactions through the node's
+   own objects: ``vectors.node_ledger`` (a ``LedgerTxnRoot`` holding the
+   accounts, each sequence number one below its transaction's, protocol
+   23, ``maxTxSetSize`` 1,150) and a ``make_transaction_frame`` a
+   transaction, both timed apart; admission once (``prefetch_contents_
+   hashes``, one ``prefetch_signature_batch``, then every frame's
+   ``check_valid`` over a ``LedgerTxn``), which must accept exactly the
+   transactions phase 20's checker accepted; nomination of the accepted
+   ones (``make_tx_set_from_transactions``: nothing excluded) and its
+   bytes, and of the accepted plus one rejected transaction (within
+   ``maxTxSetSize``); ``collect_signature_triples`` on the accepted
+   frames equal to ``vectors.collect_candidates`` on the same
+   transactions. A pass: flush the verify cache, ``TxSetXDRFrame.
+   from_bytes`` and ``prepare_for_apply``, ``prefetch_contents_hashes``
+   (K3), ``check_valid`` on a ``LedgerTxn`` over the root, rolled back
+   (one ``prefetch_signature_batch``: K1 or K2), ``get_txs_in_apply_
+   order``. Gates: ``check_valid`` True on every pass and False for the
+   set with a rejected transaction; every contents hash hashlib's; the
+   verify cache's misses over a pass equal to the keyed triples the
+   set collected (no per-transaction check missed); one pass with the
+   pure-Python oracle as the verify backend gives the same admission
+   verdicts, ``check_valid`` answers and apply order (by full hash); K1
+   and K3 launched in the cold passes (signer-table cache off) and K2 and
+   K3 in the hot ones (on, after one untimed pass builds the tables); the
+   dispatch clean. p50 and p90 of 10 passes each, cold and hot; the ms of
+   each public call in a pass, and inside ``check_valid`` the verify
+   engine's blocking span (a ``tracing.span_totals()`` delta); the
+   setup's, admission's and nomination's times and the accepted and
+   rejected counts;
+22. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -237,14 +266,16 @@ and K2 over phase 18 (``launches_service``; (a) alone
 ``launches_service_mixed``), K1 and K2 over phase 19 (a) and (b)
 (``launches_fleet``, ``launches_wire``), K1 and K3 over phase 20's cold
 passes and K2 and K3 over its hot ones (``launches_node``,
-``launches_node_hot``). After every main-path phase the dispatch must be
-clean: no device fault (no retry, every breaker closed
-and never opened), no audit mismatch, no conviction; only phases 16, 18
-(c) and (e), and 21 expect otherwise. The engine has no host failover, so no
-row of a card is ever served by the host. Before the last line, one
-``{"kernels": [...]}`` line holds every kernel's launches, times, bound
-and build; the last line is ``{"ok": true, "device": {...}}``. With no
-card, or outside the repository, it exits non-zero and prints no result.
+``launches_node_hot``), K1 and K3 over phase 21's cold passes and K2 and
+K3 over its hot ones (``launches_txset``, ``launches_txset_hot``). After
+every main-path phase the dispatch must be clean: no device fault (no
+retry, every breaker closed and never opened), no audit mismatch, no
+conviction; only phases 16, 18 (c) and (e), and 22 expect otherwise. The
+engine has no host failover, so no row of a card is ever served by the
+host. Before the last line, one ``{"kernels": [...]}`` line holds every
+kernel's launches, times, bound and build; the last line is ``{"ok":
+true, "device": {...}}``. With no card, or outside the repository, it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -267,6 +298,7 @@ try:
     import numpy as np
     import torch
 
+    import stellar_tpu_torch.tx.ops  # noqa: F401 (fills the op registry)
     from stellar_tpu_torch.crypto import ed25519_ref as ref
     from stellar_tpu_torch.crypto import (fleet, ingress, keys, native_prep,
                                           native_verify, tenant, vectors,
@@ -277,6 +309,8 @@ try:
     from stellar_tpu_torch.crypto.batch_verifier import (
         BatchVerifier, Ed25519HotWorkload, Ed25519Workload, TrickleBatcher,
         default_verifier)
+    from stellar_tpu_torch.herder import tx_set
+    from stellar_tpu_torch.ledger.ledger_txn import LedgerTxn
     from stellar_tpu_torch.ops import _build
     from stellar_tpu_torch.ops import sha256 as sk
     from stellar_tpu_torch.ops import verify as vk
@@ -291,8 +325,11 @@ try:
     from stellar_tpu_torch.utils.timeline import pipeline_timeline
     from stellar_tpu_torch.utils.transfer_ledger import (
         DEFAULT_FP_MAX_BYTES, transfer_ledger)
+    from stellar_tpu_torch.tx.transaction_frame import make_transaction_frame
+    from stellar_tpu_torch.xdr import ledger as xledger
+    from stellar_tpu_torch.xdr import results as xresults
     from stellar_tpu_torch.xdr import tx as xtx
-    from stellar_tpu_torch.xdr.runtime import from_bytes
+    from stellar_tpu_torch.xdr.runtime import from_bytes, to_bytes
 except ImportError as e:  # run outside the repository
     _IMPORT_ERROR = e
 else:
@@ -408,7 +445,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 21's per-device backoff: far longer than a TxSet call (tens of
+# phase 22's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -476,6 +513,12 @@ NODE_TXS = 1000
 NODE_PASSES = 10
 NODE_SAMPLE_S = 0.05
 NODE_STEPS = ("decode", "payload", "hash", "collect", "prefetch", "check")
+# phase 21, the node's TxSet: timed passes cold and hot over phase 20's
+# transactions, the previous ledger's hash the set names, and the steps of
+# a pass (each a public call of herder/tx_set.py)
+TXSET_PASSES = 10
+TXSET_LCL = hashlib.sha256(b"chip_smoke.py phase 21").digest()
+TXSET_STEPS = ("decode_prepare", "hash", "check_valid", "apply_order")
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -3298,6 +3341,20 @@ def _journal_view(fl, srv, wire_tickets):
     return out
 
 
+def _counts():
+    """K1's, K2's and K3's launch counts, the card synchronised first."""
+    torch.cuda.synchronize()
+    return {"verify_cold": vk.verify_kernel.launches,
+            "verify_hot": vk.verify_kernel_hot.launches,
+            "sha256": sk.sha256_kernel.launches}
+
+
+def _zero_counts():
+    vk.verify_kernel.launches = 0
+    vk.verify_kernel_hot.launches = 0
+    sk.sha256_kernel.launches = 0
+
+
 def _node_pass(envs, accounts, prefetch=True):
     """One pass of the node's signature path over the envelopes, the
     verify cache flushed first: ``(verdicts, hashes, payloads, items,
@@ -3403,14 +3460,9 @@ def phase_node(rng, info):
             hl.append((time.perf_counter() - t) * 1e3)
         res["hashlib_p50_ms"] = float(np.percentile(hl, 50))
         signer_table_cache.configure(enabled=False)
-        vk.verify_kernel.launches = 0
-        vk.verify_kernel_hot.launches = 0
-        sk.sha256_kernel.launches = 0
+        _zero_counts()
         res["cold"] = _node_passes(envs, accounts, want, "cold")
-        torch.cuda.synchronize()
-        launches["cold"] = {"verify_cold": vk.verify_kernel.launches,
-                            "verify_hot": vk.verify_kernel_hot.launches,
-                            "sha256": sk.sha256_kernel.launches}
+        launches["cold"] = _counts()
         check(launches["cold"]["verify_cold"] > 0 and
               launches["cold"]["sha256"] > 0,
               f"node (cold): K1 and K3 launches {launches['cold']}")
@@ -3419,14 +3471,9 @@ def phase_node(rng, info):
         t = time.perf_counter()
         _node_pass(envs, accounts)
         res["table_build_s"] = time.perf_counter() - t
-        vk.verify_kernel.launches = 0
-        vk.verify_kernel_hot.launches = 0
-        sk.sha256_kernel.launches = 0
+        _zero_counts()
         res["hot"] = _node_passes(envs, accounts, want, "hot")
-        torch.cuda.synchronize()
-        launches["hot"] = {"verify_cold": vk.verify_kernel.launches,
-                           "verify_hot": vk.verify_kernel_hot.launches,
-                           "sha256": sk.sha256_kernel.launches}
+        launches["hot"] = _counts()
         check(launches["hot"]["verify_hot"] > 0 and
               launches["hot"]["sha256"] > 0,
               f"node (hot): K2 and K3 launches {launches['hot']}")
@@ -3461,6 +3508,8 @@ def phase_node(rng, info):
                                       snap["anomalies"]][-8:]}
     res["launches"] = launches
     res["seconds"] = time.perf_counter() - t0
+    traffic = {"envs": envs, "accounts": accounts, "hashes": hashes,
+               "verdicts": [ok for ok, _u in verdicts]}
     print(f"[node] {len(envs)} transactions, {res['candidates']} candidate "
           f"signatures, built in {build_s:.1f} s; oracle run "
           f"{res['oracle_s']:.1f} s; accepted {res['accepted']}, rejected "
@@ -3478,6 +3527,230 @@ def phase_node(rng, info):
           f"ticks, {res['ring']['tracked_series']} series, none dropped, "
           f"{res['ring']['anomalies']} anomalies fired "
           f"{res['ring']['anomaly_series']}; phase {res['seconds']:.1f} s")
+    return res, launches, traffic
+
+
+def _keyed(items) -> int:
+    """The (pk, msg, sig) triples the verify cache keys."""
+    return sum(keys.cache_keyable(pk, sig) for pk, _m, sig in items)
+
+
+def _admit(root, frames):
+    """Admission, as the transaction queue checks it: the contents
+    hashes (K3), one ``prefetch_signature_batch`` over a ``LedgerTxn`` on
+    the root (K1 or K2), then every frame's ``check_valid``; rolled back.
+    Returns each result's code."""
+    tx_set.prefetch_contents_hashes(frames)
+    ltx = LedgerTxn(root)
+    tx_set.prefetch_signature_batch(ltx, frames)
+    codes = [f.check_valid(ltx).code for f in frames]
+    ltx.rollback()
+    return codes
+
+
+def _txset_pass(raw, root, flush=True):
+    """One pass of a received TxSet, the verify cache flushed first (unless
+    ``flush`` is False): ``TxSetXDRFrame.from_bytes`` and
+    ``prepare_for_apply``, ``prefetch_contents_hashes`` (K3),
+    ``check_valid`` on a ``LedgerTxn`` over the root, rolled back (one
+    ``prefetch_signature_batch``: K1 or K2, then every transaction's
+    ``check_valid``), ``get_txs_in_apply_order``. Returns the applicable
+    set, ``check_valid``'s answer, the apply order's full hashes, the
+    verify cache's misses over the pass, the verify engine's blocking
+    span inside ``check_valid`` (ms; a ``tracing.span_totals()`` delta)
+    and the ms of each step."""
+    if flush:
+        keys.flush_verify_cache()
+    misses0 = keys.get_verify_cache_stats()["misses"]
+    ms = {}
+    t = time.perf_counter()
+    applicable = tx_set.TxSetXDRFrame.from_bytes(raw).prepare_for_apply(
+        vectors.NODE_NETWORK_ID)
+    t, ms["decode_prepare"] = time.perf_counter(), \
+        (time.perf_counter() - t) * 1e3
+    check(applicable is not None, "txset: prepare_for_apply refused the set")
+    tx_set.prefetch_contents_hashes(applicable.frames)
+    t, ms["hash"] = time.perf_counter(), (time.perf_counter() - t) * 1e3
+    before = tracing.span_totals()
+    ltx = LedgerTxn(root)
+    ok = applicable.check_valid(ltx, TXSET_LCL)
+    ltx.rollback()
+    t, ms["check_valid"] = time.perf_counter(), \
+        (time.perf_counter() - t) * 1e3
+    att = batch_engine.dispatch_attribution(before, tracing.span_totals())
+    order = [tx_set.full_tx_hash(f)
+             for f in applicable.get_txs_in_apply_order()]
+    ms["apply_order"] = (time.perf_counter() - t) * 1e3
+    misses = keys.get_verify_cache_stats()["misses"] - misses0
+    return (applicable, ok, order, misses, att["blocking_span_per_rep_ms"],
+            ms)
+
+
+def _txset_passes(raw, root, want, label):
+    """TXSET_PASSES timed passes, each gated: ``check_valid`` True, every
+    contents hash hashlib's, the verify cache missed once for each
+    well-formed triple the set collected (so no per-transaction check
+    missed), the apply order the oracle pass's."""
+    walls, spans, steps = [], [], collections.defaultdict(list)
+    for _ in range(TXSET_PASSES):
+        t = time.perf_counter()
+        applicable, ok, order, misses, span, ms = _txset_pass(raw, root)
+        walls.append((time.perf_counter() - t) * 1e3)
+        check(ok is True, f"txset ({label}): check_valid refused the set")
+        check(all(f._hash == hashlib.sha256(f.contents_preimage()).digest()
+                  for f in applicable.frames),
+              f"txset ({label}): a contents hash differs from hashlib's")
+        keyed = _keyed(applicable.sig_triples)
+        check(misses == keyed, f"txset ({label}): {misses} verify cache "
+              f"misses over the pass, {keyed} keyed triples collected")
+        check(order == want["order"], f"txset ({label}): the apply order "
+              "differs from the oracle pass's")
+        spans.append(span)
+        for k, v in ms.items():
+            steps[k].append(v)
+    return {"p50_ms": float(np.percentile(walls, 50)),
+            "p90_ms": float(np.percentile(walls, 90)),
+            "steps_p50_ms": {k: float(np.percentile(steps[k], 50))
+                             for k in TXSET_STEPS},
+            "steps_p90_ms": {k: float(np.percentile(steps[k], 90))
+                             for k in TXSET_STEPS},
+            "verify_span_p50_ms": float(np.percentile(spans, 50)),
+            "verify_span_p90_ms": float(np.percentile(spans, 90)),
+            "triples": len(applicable.sig_triples), "misses": misses}
+
+
+def phase_node_txset(info, traffic):
+    """Phase 21: the node's TxSet on the card, over phase 20's
+    transactions. Setup (the ledger, the frames) timed apart; admission
+    once, equal to phase 20's checker verdicts; nomination of the
+    accepted, nothing excluded, and of the accepted plus one rejected
+    transaction; the oracle pass (the pure-Python oracle as the verify
+    backend); then TXSET_PASSES cold passes (signer-table cache off) with
+    K1's and K3's counts set to 0 before them and read after, and, after
+    one untimed pass that builds the tables, TXSET_PASSES hot passes with
+    K2's and K3's counts read the same way."""
+    t0 = time.perf_counter()
+    envs, accounts = traffic["envs"], traffic["accounts"]
+    nid = vectors.NODE_NETWORK_ID
+    check(keys._backend is None, "txset: a verify backend is installed")
+    res = {"card": info["smi"], "txs": len(envs)}
+    t = time.perf_counter()
+    root = vectors.node_ledger(accounts)
+    res["ledger_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    frames = [make_transaction_frame(nid, from_bytes(
+        xtx.TransactionEnvelope, e)) for e in envs]
+    res["frames_s"] = time.perf_counter() - t
+    header = root.header()
+    signer_table_cache.configure(enabled=False)
+    launches = {}
+    try:
+        keys.flush_verify_cache()
+        t = time.perf_counter()
+        codes = _admit(root, frames)
+        res["admission_s"] = time.perf_counter() - t
+        ok = [c == xresults.TransactionResultCode.txSUCCESS for c in codes]
+        check(ok == traffic["verdicts"], f"txset: admission differs from "
+              f"phase 20's verdicts on "
+              f"{sum(a != b for a, b in zip(ok, traffic['verdicts']))} "
+              "transactions")
+        accepted = [f for f, k in zip(frames, ok) if k]
+        rejected = [f for f, k in zip(frames, ok) if not k]
+        res["accepted"], res["rejected"] = len(accepted), len(rejected)
+        check(accepted and rejected, f"txset: {len(accepted)} accepted, "
+              f"{len(rejected)} rejected")
+        t = time.perf_counter()
+        app, excluded = tx_set.make_tx_set_from_transactions(
+            accepted, header, TXSET_LCL)
+        res["nominate_s"] = time.perf_counter() - t
+        check(not excluded, f"txset: nomination excluded {len(excluded)}")
+        raw = to_bytes(xledger.GeneralizedTransactionSet, app.xdr)
+        worse, worse_excluded = tx_set.make_tx_set_from_transactions(
+            accepted + rejected[:1], header, TXSET_LCL)
+        check(not worse_excluded and worse.size_op() <= header.maxTxSetSize,
+              "txset: the set with a rejected transaction does not fit "
+              f"maxTxSetSize ({worse.size_op()} operations)")
+        worse_raw = to_bytes(xledger.GeneralizedTransactionSet, worse.xdr)
+        dec = [from_bytes(xtx.TransactionEnvelope, e) for e in envs]
+        ltx = LedgerTxn(root)
+        triples = tx_set.collect_signature_triples(ltx, accepted)
+        ltx.rollback()
+        check(triples == vectors.collect_candidates(
+            [d for d, k in zip(dec, ok) if k], accounts,
+            [h for h, k in zip(traffic["hashes"], ok) if k]),
+            "txset: collect_signature_triples differs from "
+            "vectors.collect_candidates on the accepted transactions")
+        res["set_bytes"], res["set_ops"] = len(raw), app.size_op()
+        res["phases"] = [p.arm for p in app.xdr.value.phases]
+        # the oracle pass: admission, the received set and the set with a
+        # rejected transaction, every verify through the oracle
+        keys.set_verifier_backend(ref.verify)
+        try:
+            keys.flush_verify_cache()
+            t = time.perf_counter()
+            oracle_frames = [make_transaction_frame(nid, from_bytes(
+                xtx.TransactionEnvelope, e)) for e in envs]
+            oracle_codes = _admit(root, oracle_frames)
+            _a, oracle_ok, oracle_order, _m, _s, _ms = _txset_pass(
+                raw, root, flush=False)
+            _a, oracle_worse, _o, _m, _s, _ms = _txset_pass(
+                worse_raw, root, flush=False)
+            res["oracle_s"] = time.perf_counter() - t
+        finally:
+            keys.set_verifier_backend(None)
+        check(oracle_codes == codes and oracle_ok is True and
+              oracle_worse is False, "txset: the oracle pass differs "
+              f"(check_valid {oracle_ok}, with a rejected transaction "
+              f"{oracle_worse})")
+        want = {"order": oracle_order}
+        _zero_counts()
+        res["cold"] = _txset_passes(raw, root, want, "cold")
+        launches["cold"] = _counts()
+        check(launches["cold"]["verify_cold"] > 0 and
+              launches["cold"]["sha256"] > 0,
+              f"txset (cold): K1 and K3 launches {launches['cold']}")
+        _a, bad_ok, _o, _m, _s, _ms = _txset_pass(worse_raw, root)
+        check(bad_ok is False, "txset: check_valid took the set holding a "
+              "rejected transaction")
+        signer_table_cache._reset_for_testing()
+        signer_table_cache.configure(enabled=True)
+        t = time.perf_counter()
+        _txset_pass(raw, root)
+        res["table_build_s"] = time.perf_counter() - t
+        _zero_counts()
+        res["hot"] = _txset_passes(raw, root, want, "hot")
+        launches["hot"] = _counts()
+        check(launches["hot"]["verify_hot"] > 0 and
+              launches["hot"]["sha256"] > 0,
+              f"txset (hot): K2 and K3 launches {launches['hot']}")
+    finally:
+        signer_table_cache._reset_for_testing()
+    check_dispatch_clean([default_verifier(), default_hasher()], "txset")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[txset] {len(envs)} transactions over vectors.node_ledger "
+          f"(protocol {header.ledgerVersion}, maxTxSetSize "
+          f"{header.maxTxSetSize}): ledger built in {res['ledger_s']:.3f} s, "
+          f"frames in {res['frames_s']:.3f} s; admission "
+          f"{res['admission_s']:.3f} s: accepted {res['accepted']}, "
+          f"rejected {res['rejected']} (phase 20's verdicts); nomination "
+          f"{res['nominate_s']:.3f} s, nothing excluded, {res['set_ops']} "
+          f"operations, phases {res['phases']}, {res['set_bytes']} B on the "
+          f"wire; oracle pass {res['oracle_s']:.1f} s; card {info['smi']}")
+    for mode in ("cold", "hot"):
+        r = res[mode]
+        parts = ", ".join(f"{k} {r['steps_p50_ms'][k]:.3f} / "
+                          f"{r['steps_p90_ms'][k]:.3f}" for k in TXSET_STEPS)
+        print(f"[txset] {mode}: pass p50 {r['p50_ms']:.3f} ms, p90 "
+              f"{r['p90_ms']:.3f} ms over {TXSET_PASSES} passes; step p50 / "
+              f"p90 ms: {parts}; the verify engine's span inside check_valid "
+              f"p50 / p90 {r['verify_span_p50_ms']:.3f} / "
+              f"{r['verify_span_p90_ms']:.3f} ms; {r['triples']} triples, "
+              f"{r['misses']} verify cache misses a pass; launches "
+              f"{launches[mode]}")
+    print(f"[txset] check_valid True on every pass and False with a "
+          f"rejected transaction; tables built in "
+          f"{res['table_build_s']:.1f} s; phase {res['seconds']:.1f} s")
     return res, launches
 
 
@@ -3656,7 +3929,9 @@ def main() -> int:
         dev, rng, txset_items, txset_want, info)
     fleet_res, fleet_launches = phase_fleet(dev, rng, service_want, info)
     del service_want
-    node, node_launches = phase_node(rng, info)
+    node, node_launches, node_traffic = phase_node(rng, info)
+    node_txset, txset_launches = phase_node_txset(info, node_traffic)
+    del node_traffic
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
@@ -3675,6 +3950,8 @@ def main() -> int:
                      launches_wire=fleet_launches["wire"]["verify_cold"],
                      launches_node=node_launches["cold"]["verify_cold"],
                      launches_node_hot=node_launches["hot"]["verify_cold"],
+                     launches_txset=txset_launches["cold"]["verify_cold"],
+                     launches_txset_hot=txset_launches["hot"]["verify_cold"],
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -3685,6 +3962,7 @@ def main() -> int:
                      launches_fleet=fleet_launches["fleet"]["verify_hot"],
                      launches_wire=fleet_launches["wire"]["verify_hot"],
                      launches_node=node_launches["hot"]["verify_hot"],
+                     launches_txset=txset_launches["hot"]["verify_hot"],
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -3693,6 +3971,8 @@ def main() -> int:
                      info["smi"],
                      launches_node=node_launches["cold"]["sha256"],
                      launches_node_hot=node_launches["hot"]["sha256"],
+                     launches_txset=txset_launches["cold"]["sha256"],
+                     launches_txset_hot=txset_launches["hot"]["sha256"],
                      **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
@@ -3724,7 +4004,8 @@ def main() -> int:
         "split_txset": split, "audit_cost": audit_cost,
         "transfer_cost": transfer_cost,
         "deadline": deadline, "probe": probe, "service": service,
-        "fleet": fleet_res, "node": node, "fault_domains": fault_domains,
+        "fleet": fleet_res, "node": node, "node_txset": node_txset,
+        "fault_domains": fault_domains,
         "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

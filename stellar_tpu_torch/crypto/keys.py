@@ -53,6 +53,7 @@ __all__ = [
     "sign_ops_per_second", "verify_ops_per_second",
     "VERIFY_CACHE_SIZE", "MIN_DEVICE_BATCH", "batch_verify_into_cache",
     "seed_cache_assume_valid", "accelerated_verify_available",
+    "cache_keyable",
 ]
 
 VERIFY_CACHE_SIZE = 0xFFFF
@@ -208,9 +209,16 @@ def get_verifier_backend_name() -> str:
     return getattr(_backend, "__qualname__", "custom")
 
 
+def cache_keyable(pk: bytes, sig: bytes) -> bool:
+    """Whether the verify cache keys a triple with this key and
+    signature: a 32-byte key and a 64-byte signature. Any other triple is
+    answered ``False`` without a lookup and never enters the cache."""
+    return len(pk) == 32 and len(sig) == 64
+
+
 def _cache_key(pk: bytes, msg: bytes, sig: bytes) -> bytes:
-    # pk and sig are checked to be 32 and 64 bytes before this is
-    # called, so the concatenation's field boundaries are unambiguous
+    # pk and sig pass cache_keyable before this is called, so the
+    # concatenation's field boundaries are unambiguous
     return sha256(pk + sig + msg)
 
 
@@ -218,7 +226,7 @@ def verify_sig(pk, msg: bytes, sig: bytes) -> bool:
     """The ``PubKeyUtils::verifySig`` equivalent: the cache, then the
     backend (the oracle when none is installed)."""
     raw = pk.raw if isinstance(pk, PublicKey) else bytes(pk)
-    if len(sig) != 64 or len(raw) != 32:
+    if not cache_keyable(raw, sig):
         return False
     key = _cache_key(raw, msg, sig)
     with _cache_lock:
@@ -237,7 +245,7 @@ def cached_verify_sig(pk, msg: bytes, sig: bytes) -> Optional[bool]:
     a miss). Malformed lengths answer ``False``, as ``verify_sig``
     does."""
     raw = pk.raw if isinstance(pk, PublicKey) else bytes(pk)
-    if len(sig) != 64 or len(raw) != 32:
+    if not cache_keyable(raw, sig):
         return False
     with _cache_lock:
         return _verify_cache.maybe_get(_cache_key(raw, msg, sig))
@@ -249,7 +257,7 @@ def seed_verify_cache(results) -> None:
     consistent with the direct path."""
     keyed = [(_cache_key(pk, msg, sig), bool(ok))
              for pk, msg, sig, ok in results
-             if len(pk) == 32 and len(sig) == 64]
+             if cache_keyable(pk, sig)]
     with _cache_lock:
         for k, ok in keyed:
             _verify_cache.put(k, ok)
@@ -266,7 +274,7 @@ def batch_verify_into_cache(items) -> None:
     which raises when there is no card."""
     keyed = [(_cache_key(pk, msg, sig), pk, msg, sig)
              for pk, msg, sig in items
-             if len(pk) == 32 and len(sig) == 64]
+             if cache_keyable(pk, sig)]
     with _cache_lock:
         todo = [(k, pk, msg, sig) for k, pk, msg, sig in keyed
                 if _verify_cache.maybe_get(k) is None]
@@ -300,7 +308,7 @@ def seed_cache_assume_valid(items) -> int:
     trusted (the reference's ``CATCHUP_SKIP_KNOWN_RESULTS_FOR_TESTING``).
     Returns how many were marked."""
     keyed = [_cache_key(pk, msg, sig) for pk, msg, sig in items
-             if len(pk) == 32 and len(sig) == 64]
+             if cache_keyable(pk, sig)]
     with _cache_lock:
         for k in keyed:
             _verify_cache.put(k, True)

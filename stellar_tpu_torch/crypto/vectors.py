@@ -31,7 +31,10 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
 * :func:`collect_candidates` — every (pk, msg, sig) triple such a set
   may verify, as the node's TxSet prefetch collects them;
 * :func:`check_transaction` — a transaction's signature verdict and the
-  checker's ``used`` flags, in the order the node checks them.
+  checker's ``used`` flags, in the order the node checks them;
+* :func:`node_ledger` — a ``LedgerTxnRoot`` holding such an account
+  table, each sequence number one below its transaction's, under a
+  header the set's transactions validate against.
 """
 
 from __future__ import annotations
@@ -41,7 +44,11 @@ import numpy as np
 from stellar_tpu_torch.crypto import ed25519_ref as ref
 from stellar_tpu_torch.crypto.keys import SecretKey
 from stellar_tpu_torch.crypto.sha import sha256
+from stellar_tpu_torch.ledger.ledger_txn import (
+    LedgerTxnRoot, copy_header, entry_to_key, key_bytes,
+)
 from stellar_tpu_torch.parallel.signer_tables import build_signer_table
+from stellar_tpu_torch.protocol import CURRENT_LEDGER_PROTOCOL_VERSION
 from stellar_tpu_torch.tx import signature_utils as su
 from stellar_tpu_torch.tx.signature_checker import SignatureChecker
 from stellar_tpu_torch.xdr import tx as xtx
@@ -51,7 +58,8 @@ from stellar_tpu_torch.xdr.runtime import to_bytes
 __all__ = ["keypair", "valid_items", "edge_corpus", "matching_rows",
            "random_rows", "hot_matching_rows", "r16_matching_rows",
            "r16_overflow_rows", "R16_OVERFLOW", "NODE_NETWORK_ID",
-           "node_txset", "collect_candidates", "check_transaction"]
+           "node_txset", "collect_candidates", "check_transaction",
+           "node_ledger", "NODE_MAX_TX_SET_SIZE"]
 
 # The least scalar whose signed radix-16 top digit exceeds the 8-entry
 # table: 0x8777...78 (an 8, 62 sevens, an 8). Digits in [-8, 8) below
@@ -255,6 +263,11 @@ NODE_NETWORK_ID = sha256(b"Test SDF Network ; September 2015")
 
 # the protocol version the checker is handed (it reads none of it)
 NODE_PROTOCOL_VERSION = 21
+
+# node_ledger's maxTxSetSize: room for every operation of node_txset's
+# default set (850 one-operation and 150 two-operation transactions), so
+# that nomination trims nothing
+NODE_MAX_TX_SET_SIZE = 1150
 
 
 def _signer(arm, value, weight: int):
@@ -506,3 +519,33 @@ def check_transaction(env, accounts, h: bytes):
                 _signers_for(acc), acc.thresholds[xt.THRESHOLD_MED]):
             return False, list(checker.used)
     return checker.check_all_signatures_used(), list(checker.used)
+
+
+def node_ledger(accounts,
+                ledger_version: int = CURRENT_LEDGER_PROTOCOL_VERSION
+                ) -> LedgerTxnRoot:
+    """A ``LedgerTxnRoot`` whose store holds ``node_txset``'s account
+    table (raw account key -> ``AccountEntry``), each ``seqNum`` one
+    below the table's (``node_txset`` gives an account its transaction's
+    sequence number), so that every transaction's sequence number is the
+    next one. The header is the genesis ledger's (base fee 100, base
+    reserve 100,000,000, close time 0) at ``ledger_version`` (by default
+    the current protocol, so a TxSet carries the Soroban phase, parallel
+    and empty), ledger 2, with ``NODE_MAX_TX_SET_SIZE``. The table is
+    not changed."""
+    root = LedgerTxnRoot()
+    for acc in accounts.values():
+        acc = xt.AccountEntry.copy(acc)
+        acc.seqNum -= 1
+        entry = xt.LedgerEntry(
+            lastModifiedLedgerSeq=1,
+            data=xt.LedgerEntry._types[1].make(xt.LedgerEntryType.ACCOUNT,
+                                               acc),
+            ext=xt.LedgerEntry._types[2].make(0))
+        root.store.put(key_bytes(entry_to_key(entry)), entry)
+    header = copy_header(root.header())
+    header.ledgerVersion = ledger_version
+    header.ledgerSeq = 2
+    header.maxTxSetSize = NODE_MAX_TX_SET_SIZE
+    root.set_header(header)
+    return root

@@ -29,6 +29,19 @@ def _port_sources():
     return files
 
 
+# the node's TxSet slice: the ledger, the transaction and classic
+# operation frames, surge pricing and the TxSet
+NODE_MODULES = (
+    "protocol", "ledger.ledger_txn", "ledger.network_config",
+    "soroban.cost_model", "tx.account_utils", "tx.asset_utils", "tx.op_frame", "tx.sponsorship",
+    "tx.offer_exchange", "tx.revoke_utils", "tx.transaction_frame",
+    "tx.tx_test_utils", "tx.ops.account_ops", "tx.ops.claimable_balances",
+    "tx.ops.create_account", "tx.ops.liquidity_pool_ops", "tx.ops.misc",
+    "tx.ops.offers", "tx.ops.payment", "tx.ops.soroban_ops",
+    "tx.ops.sponsorship_ops", "tx.ops.trust_ops", "herder.surge_pricing",
+    "herder.tx_set")
+
+
 def test_forbidden_imports_absent():
     files = _port_sources()
     assert len(files) > 10 and all(os.path.exists(f) for f in files)
@@ -50,6 +63,9 @@ def test_forbidden_imports_absent():
                    "tx/signature_utils", "tx/signature_checker"):
         assert os.path.join(ROOT, "stellar_tpu_torch",
                             f"{module}.py") in files
+    for module in NODE_MODULES:
+        assert os.path.join(ROOT, "stellar_tpu_torch",
+                            *module.split(".")) + ".py" in files, module
     for path in files:
         with open(path) as f:
             hits = _FORBIDDEN.findall(f.read())
@@ -252,6 +268,90 @@ def test_node_transactions_with_jax_blocked():
         "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
         "sys.modules if sys.modules[m] is not None)",
         "print(sum(ok for ok, _ in got))",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 0 < int(proc.stdout.strip().splitlines()[-1]) < 40
+
+
+def test_node_txset_with_jax_blocked():
+    """A fresh interpreter in which importing jax or stellar_tpu fails
+    imports every module of the node's TxSet slice and runs a miniature
+    of ``chip_smoke.py`` phase 21 on the CPU over the pure-Python oracle:
+    40 transactions of ``vectors.node_txset`` admitted over
+    ``vectors.node_ledger`` (one ``prefetch_signature_batch``, then each
+    frame's ``check_valid``), the accepted ones nominated, the set's bytes
+    decoded and prepared, its ``check_valid`` True with every
+    per-transaction check a cache hit, and a set holding one rejected
+    transaction refused. ``prefetch_contents_hashes`` over the set's
+    frames raises with no card rather than hashing on the host."""
+    code = "\n".join([
+        "import sys, importlib",
+        "sys.modules['jax'] = None",
+        "sys.modules['stellar_tpu'] = None",
+        "import numpy as np",
+        f"for m in {NODE_MODULES!r}:",
+        "    importlib.import_module('stellar_tpu_torch.' + m)",
+        "import stellar_tpu_torch.tx.ops",
+        "from stellar_tpu_torch.crypto import ed25519_ref, keys, vectors",
+        "from stellar_tpu_torch.crypto.batch_hasher import hash_many",
+        "from stellar_tpu_torch.herder import tx_set as ts",
+        "from stellar_tpu_torch.ledger.ledger_txn import LedgerTxn",
+        "from stellar_tpu_torch.tx.transaction_frame import "
+        "make_transaction_frame",
+        "from stellar_tpu_torch.xdr import ledger as xl, tx as xtx",
+        "from stellar_tpu_torch.xdr.runtime import from_bytes, to_bytes",
+        "keys.set_verifier_backend(ed25519_ref.verify)",
+        "rng = np.random.default_rng(54)",
+        "envs, accounts = vectors.node_txset(rng, single=5, multisig=22, "
+        "two_op=8, special=5, corrupt=0.06, short_multisig=2)",
+        "nid, lcl = vectors.NODE_NETWORK_ID, bytes(range(32))",
+        "root = vectors.node_ledger(accounts)",
+        "frames = [make_transaction_frame(nid, from_bytes("
+        "xtx.TransactionEnvelope, e)) for e in envs]",
+        "adm = LedgerTxn(root)",
+        "ts.prefetch_signature_batch(adm, frames)",
+        "codes = [f.check_valid(adm).code for f in frames]",
+        "adm.rollback()",
+        "ok = [f for f, c in zip(frames, codes) if c == 0]",
+        "bad = next(f for f, c in zip(frames, codes) if c != 0)",
+        "assert 0 < len(ok) < 40, codes",
+        "def received(chosen):",
+        "    app, excluded = ts.make_tx_set_from_transactions(",
+        "        chosen, root.header(), lcl)",
+        "    assert excluded == []",
+        "    raw = to_bytes(xl.GeneralizedTransactionSet, app.xdr)",
+        "    got = ts.TxSetXDRFrame.from_bytes(raw).prepare_for_apply(nid)",
+        "    assert got.hash == app.hash",
+        "    return got",
+        "got = received(ok)",
+        "import torch",
+        "if not torch.cuda.is_available():",
+        "    try:",
+        "        ts.prefetch_contents_hashes(got.frames)",
+        "        raise SystemExit('the hashes fell back to the host')",
+        "    except RuntimeError:",
+        "        pass",
+        "for f, d in zip(got.frames, hash_many("
+        "[f.contents_preimage() for f in got.frames], device='cpu')):",
+        "    f._hash = d",
+        "keys.flush_verify_cache()",
+        "ltx = LedgerTxn(root)",
+        "assert got.check_valid(ltx, lcl)",
+        "ltx.rollback()",
+        "st = keys.get_verify_cache_stats()",
+        "assert st['misses'] == len(got.sig_triples), st",
+        "worse = received(ok + [bad])",
+        "ltx = LedgerTxn(root)",
+        "assert not worse.check_valid(ltx, lcl)",
+        "ltx.rollback()",
+        "assert len(got.get_txs_in_apply_order()) == len(ok)",
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == "
+        "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
+        "sys.modules if sys.modules[m] is not None)",
+        "print(len(ok))",
     ])
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
