@@ -194,7 +194,8 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    divergence, every wire trace stitched wire -> route -> enqueue ->
    terminal; K1 and K2 must launch in (a) and in (b);
 20. the node's transactions — ``BASELINE.json`` config 2's TxSet at full
-   width: ``vectors.node_txset`` builds 1,000 signed v1
+   width: ``vectors.node_txset`` (from a generator of its own,
+   ``NODE_SEED``) builds 1,000 signed v1
    ``TransactionEnvelope`` s (single-key, 2-of-3 multisig, two-operation
    and pre-auth/hashX/signed-payload accounts, about 1,900 ed25519
    signatures and 50 hashX preimages, 2% of the signatures corrupted) and
@@ -250,7 +251,49 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    engine's blocking span (a ``tracing.span_totals()`` delta); the
    setup's, admission's and nomination's times and the accepted and
    rejected counts;
-22. fault domains, last — on the 4-index verifier: ``fail-device`` on
+22. the node's ledger close — ``LedgerManager(network_id, root).
+   close_ledger(LedgerCloseData(...))``: the bulk prefetch of apply keys,
+   the verify cache seeded (K1 or K2), the fee phase, every transaction's
+   apply with its meta, ``txSetResultHash``, the upgrades, the eviction
+   scan, the bucket list's batch and hash (the C++ bucket runtime,
+   ``utils/native.py``) and the hot archive, the skip list and the LCL,
+   the close meta when a consumer is attached; after the device probe
+   has answered (``device_available(block=True)``), every close on a
+   fresh root and ``LedgerManager`` built before it and timed apart. (a)
+   ``BASELINE.json`` config 1, ``tests/test_close_ledger.py``'s 100
+   payments to one destination (``tx_test_utils``' test network,
+   ``maxTxSetSize`` 200): 10 passes of a verify-cache flush and a close
+   with no ``check_valid`` before it, the signer-table cache off; each
+   applies 100 and fails none, takes the fee pool to 10,000 and the
+   destination to its 1,100 XLM, gives ``CONFIG1_CLOSE_HASH`` (the
+   reference's close of the same ledger) and launches K1 once. (b)
+   config 2 replayed: phase 21's accepted transactions over
+   ``vectors.node_close_ledger`` (their accounts plus each payment's
+   destination, each offer's issuer and its seller's trustline),
+   nominated once (nothing excluded); a pass runs catchup's order for one
+   ledger, a flush, ``TxSetXDRFrame.from_bytes`` and
+   ``prepare_for_apply``, ``prefetch_contents_hashes`` (K3),
+   ``close_ledger`` (its own ``prefetch_signature_batch``): 5 passes cold
+   (signer-table cache off), one untimed that builds the tables, 5 hot.
+   (c) one close after the set's own ``check_valid`` (rolled back): the
+   close re-seeds from its ``sig_triples``, with no K1 or K2 launch and
+   no verify-cache miss inside. (d) one close each over the pure-Python
+   oracle, with every invariant (``InvariantManager()``), and with a
+   ``close_meta_stream`` consumer keeping the ``LedgerCloseMeta`` bytes.
+   Gates: every config 2 close applies ``CONFIG2_APPLIED`` and fails
+   none and gives ``CONFIG2_CLOSE_HASH``, the meta bytes hash to
+   ``CONFIG2_META_HASH`` (both the reference's), no
+   ``InvariantDoesNotHold``, every contents hash hashlib's, the verify
+   cache's misses over a replayed close equal to the keyed triples the
+   set collects (no per-signature check of the fee or apply phase
+   missed), K1 and K3 launched cold and K2 and K3 hot, the C++ bucket
+   runtime loaded, the dispatch clean. p50 and p90 of (a) and of (b)
+   cold and hot, the ms a pass of each step, inside the close (from
+   ``tracing.span_totals()`` deltas) the ``ledger.close`` zone, the
+   verify engine's span, the ``bucket.addBatch`` zone and the rest (the
+   fee and apply phases), the roots' and ``LedgerManager`` s' build
+   times, the nomination, (c)'s and (d)'s closes;
+23. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -267,10 +310,13 @@ and K2 over phase 18 (``launches_service``; (a) alone
 (``launches_fleet``, ``launches_wire``), K1 and K3 over phase 20's cold
 passes and K2 and K3 over its hot ones (``launches_node``,
 ``launches_node_hot``), K1 and K3 over phase 21's cold passes and K2 and
-K3 over its hot ones (``launches_txset``, ``launches_txset_hot``). After
-every main-path phase the dispatch must be clean: no device fault (no
-retry, every breaker closed and never opened), no audit mismatch, no
-conviction; only phases 16, 18 (c) and (e), and 22 expect otherwise. The
+K3 over its hot ones (``launches_txset``, ``launches_txset_hot``), K1
+over phase 22 (a)'s passes (``launches_close_config1``), K1 and K3 over
+its cold replayed closes and K2 and K3 over its hot ones
+(``launches_close``, ``launches_close_hot``). After every main-path
+phase the dispatch must be clean: no device fault (no retry, every
+breaker closed and never opened), no audit mismatch, no conviction; only
+phases 16, 18 (c) and (e), and 23 expect otherwise. The
 engine has no host failover, so no row of a card is ever served by the
 host. Before the last line, one ``{"kernels": [...]}`` line holds every
 kernel's launches, times, bound and build; the last line is ``{"ok":
@@ -299,6 +345,7 @@ try:
     import torch
 
     import stellar_tpu_torch.tx.ops  # noqa: F401 (fills the op registry)
+    from stellar_tpu_torch import invariant
     from stellar_tpu_torch.crypto import ed25519_ref as ref
     from stellar_tpu_torch.crypto import (fleet, ingress, keys, native_prep,
                                           native_verify, tenant, vectors,
@@ -310,7 +357,9 @@ try:
         BatchVerifier, Ed25519HotWorkload, Ed25519Workload, TrickleBatcher,
         default_verifier)
     from stellar_tpu_torch.herder import tx_set
-    from stellar_tpu_torch.ledger.ledger_txn import LedgerTxn
+    from stellar_tpu_torch.invariant.invariants import InvariantManager
+    from stellar_tpu_torch.ledger import ledger_manager
+    from stellar_tpu_torch.ledger.ledger_txn import LedgerTxn, key_bytes
     from stellar_tpu_torch.ops import _build
     from stellar_tpu_torch.ops import sha256 as sk
     from stellar_tpu_torch.ops import verify as vk
@@ -318,17 +367,20 @@ try:
     from stellar_tpu_torch.parallel.batch_engine import DEFAULT_BUCKET_SIZES
     from stellar_tpu_torch.parallel.signer_tables import (
         TABLE_ENTRIES, build_signer_table, signer_table_cache)
-    from stellar_tpu_torch.utils import (faults, journal, metrics,
+    from stellar_tpu_torch.utils import (faults, journal, metrics, native,
                                          resilience, tracing)
     from stellar_tpu_torch.utils.device import resolve_device
     from stellar_tpu_torch.utils.metrics import registry
     from stellar_tpu_torch.utils.timeline import pipeline_timeline
     from stellar_tpu_torch.utils.transfer_ledger import (
         DEFAULT_FP_MAX_BYTES, transfer_ledger)
+    from stellar_tpu_torch.tx import tx_test_utils
+    from stellar_tpu_torch.tx.op_frame import account_key
     from stellar_tpu_torch.tx.transaction_frame import make_transaction_frame
     from stellar_tpu_torch.xdr import ledger as xledger
     from stellar_tpu_torch.xdr import results as xresults
     from stellar_tpu_torch.xdr import tx as xtx
+    from stellar_tpu_torch.xdr import types as xt
     from stellar_tpu_torch.xdr.runtime import from_bytes, to_bytes
 except ImportError as e:  # run outside the repository
     _IMPORT_ERROR = e
@@ -445,7 +497,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 22's per-device backoff: far longer than a TxSet call (tens of
+# phase 23's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -510,6 +562,10 @@ GAP_POLL_S = 0.01
 # builds by default, timed passes cold and hot, the time-series ring's
 # interval, s
 NODE_TXS = 1000
+# phase 20's traffic comes from a generator of its own, so that phases
+# 20-22's transactions, and phase 22's pinned hashes, do not depend on
+# what the phases before drew
+NODE_SEED = 20261018
 NODE_PASSES = 10
 NODE_SAMPLE_S = 0.05
 NODE_STEPS = ("decode", "payload", "hash", "collect", "prefetch", "check")
@@ -519,6 +575,19 @@ NODE_STEPS = ("decode", "payload", "hash", "collect", "prefetch", "check")
 TXSET_PASSES = 10
 TXSET_LCL = hashlib.sha256(b"chip_smoke.py phase 21").digest()
 TXSET_STEPS = ("decode_prepare", "hash", "check_valid", "apply_order")
+# phase 22: the node's ledger close
+CLOSE_TIME = 5000
+CONFIG1_TXS = 100
+CONFIG1_PASSES = 10
+CLOSE_PASSES = 5
+CLOSE_STEPS = ("decode_prepare", "hash", "close")
+# the reference's closes of the same ledgers (stellar_tpu, on the CPU;
+# tests/test_torch_ledger_close.py recomputes them): config 1 in tier 1,
+# config 2 in the test marked slow
+CONFIG1_CLOSE_HASH = "54892cc957c8aa2452189c61983a6a3cb2ef799d831ce11766a7a740ff85a1b3"
+CONFIG2_APPLIED = 963
+CONFIG2_CLOSE_HASH = "703649b1b5d89f6667d078687e56e502d4f4a00a2ee947bd14bcc3eb77384c7b"
+CONFIG2_META_HASH = "1703825e8d2e7ddfca3bd083736e3efa5a217f1f4bb96bdcae5118e25f7866aa"
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -3754,6 +3823,350 @@ def phase_node_txset(info, traffic):
     return res, launches
 
 
+def _close_root_lm(build_root, nid):
+    """A fresh root from ``build_root()`` and a ``LedgerManager`` over it
+    (its genesis batch into the bucket list): ``(lm, root s, lm s)``."""
+    t = time.perf_counter()
+    root = build_root()
+    root_s = time.perf_counter() - t
+    t = time.perf_counter()
+    lm = ledger_manager.LedgerManager(nid, root)
+    return lm, root_s, time.perf_counter() - t
+
+
+def _close_spans(before, after):
+    """Inside one close, from ``tracing.span_totals()`` deltas: the
+    ``ledger.close`` zone, the verify engine's blocking span, the
+    ``bucket.addBatch`` zone and the rest (the fee and apply phases, the
+    hot archive, the eviction scan, the header), ms."""
+    def zone_ms(name):
+        a, b = after.get(name), before.get(name)
+        return (a["sum_ms"] if a else 0.0) - (b["sum_ms"] if b else 0.0)
+    out = {"close_zone": zone_ms("zone.ledger.close"),
+           "verify_span": batch_engine.dispatch_attribution(
+               before, after)["blocking_span_per_rep_ms"],
+           "add_batch": zone_ms("zone.bucket.addBatch")}
+    out["rest"] = out["close_zone"] - out["verify_span"] - out["add_batch"]
+    return out
+
+
+def _config1_close(info):
+    """Phase 22 (a): ``BASELINE.json`` config 1, ``tests/
+    test_close_ledger.py``'s 100 payments to one destination over a fresh
+    root each pass, closed with no ``check_valid`` before it: the close's
+    own ``prefetch_signature_batch`` launches K1 once a pass (signer-table
+    cache off)."""
+    tu = tx_test_utils
+    nid = tu.TEST_NETWORK_ID
+    t = time.perf_counter()
+    senders = [tu.keypair(f"s{i}") for i in range(CONFIG1_TXS)]
+    dest = tu.keypair("well-known-dest")
+    xlm = 10_000_000
+    accounts = [(k, 1000 * xlm) for k in senders] + [(dest, 1000 * xlm)]
+    start = 1 << 32   # seed_root_with_accounts' sequence numbers
+    envs = [to_bytes(xtx.TransactionEnvelope, tu.make_tx(
+        k, start + 1, [tu.payment_op(dest, xlm)]).envelope)
+        for k in senders]
+    build_s = time.perf_counter() - t
+    dest_key = key_bytes(account_key(xt.account_id(dest.public_key.raw)))
+    walls, setups, spans = [], [], collections.defaultdict(list)
+    signer_table_cache.configure(enabled=False)
+    try:
+        for _ in range(CONFIG1_PASSES):
+            lm, root_s, lm_s = _close_root_lm(
+                lambda: tu.seed_root_with_accounts(accounts), nid)
+            setups.append(root_s + lm_s)
+            header = lm.last_closed_header
+            header.maxTxSetSize = 200
+            txset, excluded = tx_set.make_tx_set_from_transactions(
+                [make_transaction_frame(nid, from_bytes(
+                    xtx.TransactionEnvelope, e)) for e in envs],
+                header, lm.last_closed_hash)
+            check(not excluded, f"close (a): {len(excluded)} excluded")
+            keys.flush_verify_cache()
+            k1 = _counts()["verify_cold"]
+            before = tracing.span_totals()
+            t = time.perf_counter()
+            res = lm.close_ledger(ledger_manager.LedgerCloseData(
+                ledger_seq=lm.ledger_seq + 1, tx_set=txset,
+                close_time=CLOSE_TIME))
+            walls.append((time.perf_counter() - t) * 1e3)
+            for k, v in _close_spans(before, tracing.span_totals()).items():
+                spans[k].append(v)
+            check(res.applied_count == CONFIG1_TXS and
+                  res.failed_count == 0, f"close (a): applied "
+                  f"{res.applied_count}, failed {res.failed_count}")
+            check(res.header.feePool == 100 * CONFIG1_TXS,
+                  f"close (a): feePool {res.header.feePool}")
+            balance = lm.root.store.get(dest_key).data.value.balance
+            check(balance == 1000 * xlm + CONFIG1_TXS * xlm,
+                  f"close (a): the destination holds {balance}")
+            check(res.header_hash.hex() == CONFIG1_CLOSE_HASH,
+                  f"close (a): header hash {res.header_hash.hex()} is not "
+                  "the reference's")
+            launched = _counts()["verify_cold"] - k1
+            check(launched == 1, f"close (a): {launched} K1 launches in "
+                  "a pass")
+    finally:
+        signer_table_cache._reset_for_testing()
+    return {"txs": CONFIG1_TXS, "build_s": build_s,
+            "p50_ms": float(np.percentile(walls, 50)),
+            "p90_ms": float(np.percentile(walls, 90)),
+            "setup_p50_s": float(np.percentile(setups, 50)),
+            "spans_p50_ms": {k: float(np.percentile(v, 50))
+                             for k, v in spans.items()},
+            "card": info["smi"]}
+
+
+def _replay_close(raw, lm):
+    """Catchup's order for one ledger on ``lm``: the verify cache flushed,
+    ``TxSetXDRFrame.from_bytes`` and
+    ``prepare_for_apply``, ``prefetch_contents_hashes`` (K3), then
+    ``close_ledger`` (its ``sig_triples`` None, so its own
+    ``prefetch_signature_batch``: K1 or K2). Returns the result, the
+    prepared frames, the verify cache's misses over the pass, the ms of
+    each step and the spans inside the close."""
+    keys.flush_verify_cache()
+    misses0 = keys.get_verify_cache_stats()["misses"]
+    ms = {}
+    t = time.perf_counter()
+    applicable = tx_set.TxSetXDRFrame.from_bytes(raw).prepare_for_apply(
+        vectors.NODE_NETWORK_ID)
+    t, ms["decode_prepare"] = time.perf_counter(), \
+        (time.perf_counter() - t) * 1e3
+    check(applicable is not None, "close: prepare_for_apply refused the set")
+    tx_set.prefetch_contents_hashes(applicable.frames)
+    t, ms["hash"] = time.perf_counter(), (time.perf_counter() - t) * 1e3
+    before = tracing.span_totals()
+    res = lm.close_ledger(ledger_manager.LedgerCloseData(
+        ledger_seq=lm.ledger_seq + 1, tx_set=applicable,
+        close_time=CLOSE_TIME))
+    ms["close"] = (time.perf_counter() - t) * 1e3
+    spans = _close_spans(before, tracing.span_totals())
+    misses = keys.get_verify_cache_stats()["misses"] - misses0
+    return res, applicable.frames, misses, ms, spans
+
+
+def _check_config2(res, label):
+    check(res.applied_count == CONFIG2_APPLIED and res.failed_count == 0,
+          f"close ({label}): applied {res.applied_count}, failed "
+          f"{res.failed_count}")
+    check(res.header_hash.hex() == CONFIG2_CLOSE_HASH,
+          f"close ({label}): header hash {res.header_hash.hex()} is not "
+          "the reference's")
+
+
+def _replay_passes(raw, build_root, keyed, label):
+    """CLOSE_PASSES replayed closes, each on a fresh root and
+    ``LedgerManager`` built before it, untimed, each gated."""
+    walls, setups = [], []
+    steps, spans = collections.defaultdict(list), collections.defaultdict(
+        list)
+    for _ in range(CLOSE_PASSES):
+        lm, root_s, lm_s = _close_root_lm(build_root,
+                                          vectors.NODE_NETWORK_ID)
+        setups.append((root_s, lm_s))
+        t = time.perf_counter()
+        res, frames, misses, ms, sp = _replay_close(raw, lm)
+        walls.append((time.perf_counter() - t) * 1e3)
+        _check_config2(res, label)
+        check(all(f._hash == hashlib.sha256(f.contents_preimage()).digest()
+                  for f in frames),
+              f"close ({label}): a contents hash differs from hashlib's")
+        check(misses == keyed, f"close ({label}): {misses} verify cache "
+              f"misses over the close, {keyed} keyed triples collected")
+        for k, v in ms.items():
+            steps[k].append(v)
+        for k, v in sp.items():
+            spans[k].append(v)
+    return {"p50_ms": float(np.percentile(walls, 50)),
+            "p90_ms": float(np.percentile(walls, 90)),
+            "steps_p50_ms": {k: float(np.percentile(steps[k], 50))
+                             for k in CLOSE_STEPS},
+            "steps_p90_ms": {k: float(np.percentile(steps[k], 90))
+                             for k in CLOSE_STEPS},
+            "spans_p50_ms": {k: float(np.percentile(v, 50))
+                             for k, v in spans.items()},
+            "root_p50_s": float(np.percentile([a for a, _b in setups], 50)),
+            "lm_p50_s": float(np.percentile([b for _a, b in setups], 50))}
+
+
+def _one_close(raw, build_root, label):
+    """One replayed close on a fresh root, gated, untimed against the
+    passes: its ms."""
+    lm, _r, _l = _close_root_lm(build_root, vectors.NODE_NETWORK_ID)
+    t = time.perf_counter()
+    res, _f, _m, _ms, _s = _replay_close(raw, lm)
+    ms = (time.perf_counter() - t) * 1e3
+    _check_config2(res, label)
+    return ms
+
+
+def phase_node_close(info, traffic):
+    """Phase 22: the node's ledger close on the card. (a) config 1; then
+    phase 21's accepted transactions over ``vectors.node_close_ledger``:
+    (b) CLOSE_PASSES replayed closes cold (signer-table cache off) with
+    K1's and K3's counts set to 0 before them and read after, one untimed
+    close that builds the tables, CLOSE_PASSES hot with K2's and K3's;
+    (c) one close after the set's own ``check_valid``; (d) one close each
+    over the oracle, with every invariant, with a meta consumer."""
+    t0 = time.perf_counter()
+    check(keys._backend is None, "close: a verify backend is installed")
+    check(batch_engine.device_available(block=True),
+          "close: the device probe did not answer")
+    check(keys.accelerated_verify_available(),
+          "close: the close would not prefetch its signatures")
+    res = {"card": info["smi"]}
+    launches = {}
+    _zero_counts()
+    res["config1"] = _config1_close(info)
+    launches["config1"] = _counts()
+    check(launches["config1"]["verify_cold"] == CONFIG1_PASSES,
+          f"close (a): K1 launches {launches['config1']}")
+    nid = vectors.NODE_NETWORK_ID
+    accepted = [e for e, ok in zip(traffic["envs"], traffic["verdicts"])
+                if ok]
+    check(len(accepted) == CONFIG2_APPLIED, f"close: {len(accepted)} "
+          f"accepted transactions, the pins' set holds {CONFIG2_APPLIED}")
+    accounts = traffic["accounts"]
+
+    def build_root():
+        return vectors.node_close_ledger(accounts, accepted)
+    lm, res["root_s"], res["lm_s"] = _close_root_lm(build_root, nid)
+    lcl = lm.last_closed_hash
+    t = time.perf_counter()
+    app, excluded = tx_set.make_tx_set_from_transactions(
+        [make_transaction_frame(nid, from_bytes(xtx.TransactionEnvelope, e))
+         for e in accepted], lm.last_closed_header, lcl)
+    res["nominate_s"] = time.perf_counter() - t
+    check(not excluded, f"close: nomination excluded {len(excluded)}")
+    raw = to_bytes(xledger.GeneralizedTransactionSet, app.xdr)
+    ltx = LedgerTxn(lm.root)
+    keyed = _keyed(tx_set.collect_signature_triples(ltx, app.frames))
+    ltx.rollback()
+    res["set_ops"], res["set_bytes"], res["keyed"] = \
+        app.size_op(), len(raw), keyed
+    res["ops_by_type"] = dict(collections.Counter(
+        xtx.OperationType.name_of(op.body.arm) for f in app.frames
+        for op in f.tx.operations))
+    res["root_entries"] = len(lm.root.store.entries)
+    check(native.available(), "close: the C++ bucket runtime did not load")
+    signer_table_cache.configure(enabled=False)
+    try:
+        _zero_counts()
+        res["cold"] = _replay_passes(raw, build_root, keyed, "cold")
+        launches["cold"] = _counts()
+        check(launches["cold"]["verify_cold"] > 0 and
+              launches["cold"]["sha256"] > 0,
+              f"close (cold): K1 and K3 launches {launches['cold']}")
+        signer_table_cache._reset_for_testing()
+        signer_table_cache.configure(enabled=True)
+        res["table_build_ms"] = _one_close(raw, build_root, "tables")
+        _zero_counts()
+        res["hot"] = _replay_passes(raw, build_root, keyed, "hot")
+        launches["hot"] = _counts()
+        check(launches["hot"]["verify_hot"] > 0 and
+              launches["hot"]["sha256"] > 0,
+              f"close (hot): K2 and K3 launches {launches['hot']}")
+        # (c) the herder's path: the set's own check_valid, then the close
+        lm, _r, _l = _close_root_lm(build_root, nid)
+        check(lm.last_closed_hash == lcl, "close (c): another LCL")
+        keys.flush_verify_cache()
+        applicable = tx_set.TxSetXDRFrame.from_bytes(raw) \
+            .prepare_for_apply(nid)
+        tx_set.prefetch_contents_hashes(applicable.frames)
+        ltx = LedgerTxn(lm.root)
+        valid = applicable.check_valid(ltx, lcl)
+        ltx.rollback()
+        check(valid is True and applicable.sig_triples is not None,
+              "close (c): check_valid refused the set")
+        before, misses0 = _counts(), keys.get_verify_cache_stats()["misses"]
+        t = time.perf_counter()
+        out = lm.close_ledger(ledger_manager.LedgerCloseData(
+            ledger_seq=lm.ledger_seq + 1, tx_set=applicable,
+            close_time=CLOSE_TIME))
+        res["herder_close_ms"] = (time.perf_counter() - t) * 1e3
+        after = _counts()
+        _check_config2(out, "herder")
+        check(after["verify_cold"] == before["verify_cold"] and
+              after["verify_hot"] == before["verify_hot"],
+              f"close (c): K1 or K2 launched inside the close ({before} -> "
+              f"{after})")
+        missed = keys.get_verify_cache_stats()["misses"] - misses0
+        check(missed == 0, f"close (c): {missed} verify cache misses in the "
+              "fee and apply phases")
+    finally:
+        signer_table_cache._reset_for_testing()
+    # (d) the oracle close, every invariant, the close meta
+    keys.set_verifier_backend(ref.verify)
+    try:
+        res["oracle_close_ms"] = _one_close(raw, build_root, "oracle")
+    finally:
+        keys.set_verifier_backend(None)
+    invariant.set_active_manager(InvariantManager())
+    try:
+        res["invariants_close_ms"] = _one_close(raw, build_root,
+                                                "invariants")
+    finally:
+        invariant.set_active_manager(None)
+    metas = []
+    lm, _r, _l = _close_root_lm(build_root, nid)
+    lm.close_meta_stream.append(
+        lambda m: metas.append(to_bytes(xledger.LedgerCloseMeta, m)))
+    t = time.perf_counter()
+    out, _f, _m, _ms, _s = _replay_close(raw, lm)
+    res["meta_close_ms"] = (time.perf_counter() - t) * 1e3
+    _check_config2(out, "meta")
+    check(len(metas) == 1 and
+          hashlib.sha256(metas[0]).hexdigest() == CONFIG2_META_HASH,
+          f"close (meta): {len(metas)} metas, the first hashing to "
+          f"{hashlib.sha256(metas[0]).hexdigest() if metas else None}")
+    res["meta_bytes"] = len(metas[0])
+    check_dispatch_clean([default_verifier(), default_hasher()], "close")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    c1 = res["config1"]
+    print(f"[close] (a) config 1, {c1['txs']} payments: close p50 "
+          f"{c1['p50_ms']:.3f} ms, p90 {c1['p90_ms']:.3f} ms over "
+          f"{CONFIG1_PASSES} passes (ledger.close {c1['spans_p50_ms']['close_zone']:.3f}, "
+          f"verify span {c1['spans_p50_ms']['verify_span']:.3f}, "
+          f"bucket.addBatch {c1['spans_p50_ms']['add_batch']:.3f}, rest "
+          f"{c1['spans_p50_ms']['rest']:.3f} ms p50); root and "
+          f"LedgerManager {c1['setup_p50_s']:.3f} s p50; header hash the "
+          f"reference's; K1 launches {launches['config1']}; card "
+          f"{info['smi']}")
+    print(f"[close] config 2: {CONFIG2_APPLIED} transactions over "
+          f"vectors.node_close_ledger: root {res['root_s']:.3f} s, "
+          f"LedgerManager {res['lm_s']:.3f} s, nomination "
+          f"{res['nominate_s']:.3f} s ({res['set_ops']} operations, "
+          f"{res['set_bytes']} B; {res['ops_by_type']}), {keyed} keyed "
+          f"triples; the root holds {res['root_entries']} entries; the C++ "
+          "bucket runtime loaded")
+    for mode in ("cold", "hot"):
+        r = res[mode]
+        parts = ", ".join(f"{k} {r['steps_p50_ms'][k]:.3f} / "
+                          f"{r['steps_p90_ms'][k]:.3f}" for k in CLOSE_STEPS)
+        sp = r["spans_p50_ms"]
+        print(f"[close] (b) {mode}: pass p50 {r['p50_ms']:.3f} ms, p90 "
+              f"{r['p90_ms']:.3f} ms over {CLOSE_PASSES} passes; step p50 / "
+              f"p90 ms: {parts}; inside the close p50: ledger.close "
+              f"{sp['close_zone']:.3f}, verify span {sp['verify_span']:.3f},"
+              f" bucket.addBatch {sp['add_batch']:.3f}, rest (fee and apply) "
+              f"{sp['rest']:.3f} ms; root {r['root_p50_s']:.3f} s, "
+              f"LedgerManager {r['lm_p50_s']:.3f} s p50; applied "
+              f"{CONFIG2_APPLIED}, failed 0, {keyed} misses a pass; "
+              f"launches {launches[mode]}")
+    print(f"[close] table-building close {res['table_build_ms']:.1f} ms; "
+          f"(c) after check_valid {res['herder_close_ms']:.3f} ms, no K1 or "
+          f"K2 launch and no miss inside; (d) oracle "
+          f"{res['oracle_close_ms']:.1f} ms, every invariant "
+          f"{res['invariants_close_ms']:.3f} ms, with the meta consumer "
+          f"{res['meta_close_ms']:.3f} ms ({res['meta_bytes']} B); every "
+          f"header hash and the meta hash the reference's; phase "
+          f"{res['seconds']:.1f} s")
+    return res, launches
+
+
 def phase_faults(v, items, want):
     """The reference's device-domain scenarios on the SPLIT-index
     verifier, cache off: fail-device 1, probation healing, corrupt-device
@@ -3929,8 +4342,10 @@ def main() -> int:
         dev, rng, txset_items, txset_want, info)
     fleet_res, fleet_launches = phase_fleet(dev, rng, service_want, info)
     del service_want
-    node, node_launches, node_traffic = phase_node(rng, info)
+    node, node_launches, node_traffic = phase_node(
+        np.random.default_rng(NODE_SEED), info)
     node_txset, txset_launches = phase_node_txset(info, node_traffic)
+    node_close, close_launches = phase_node_close(info, node_traffic)
     del node_traffic
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
@@ -3952,6 +4367,10 @@ def main() -> int:
                      launches_node_hot=node_launches["hot"]["verify_cold"],
                      launches_txset=txset_launches["cold"]["verify_cold"],
                      launches_txset_hot=txset_launches["hot"]["verify_cold"],
+                     launches_close_config1=close_launches["config1"][
+                         "verify_cold"],
+                     launches_close=close_launches["cold"]["verify_cold"],
+                     launches_close_hot=close_launches["hot"]["verify_cold"],
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -3963,6 +4382,7 @@ def main() -> int:
                      launches_wire=fleet_launches["wire"]["verify_hot"],
                      launches_node=node_launches["hot"]["verify_hot"],
                      launches_txset=txset_launches["hot"]["verify_hot"],
+                     launches_close=close_launches["hot"]["verify_hot"],
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -3973,6 +4393,8 @@ def main() -> int:
                      launches_node_hot=node_launches["hot"]["sha256"],
                      launches_txset=txset_launches["cold"]["sha256"],
                      launches_txset_hot=txset_launches["hot"]["sha256"],
+                     launches_close=close_launches["cold"]["sha256"],
+                     launches_close_hot=close_launches["hot"]["sha256"],
                      **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
@@ -4005,6 +4427,7 @@ def main() -> int:
         "transfer_cost": transfer_cost,
         "deadline": deadline, "probe": probe, "service": service,
         "fleet": fleet_res, "node": node, "node_txset": node_txset,
+        "node_close": node_close,
         "fault_domains": fault_domains,
         "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))

@@ -34,7 +34,10 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
   checker's ``used`` flags, in the order the node checks them;
 * :func:`node_ledger` — a ``LedgerTxnRoot`` holding such an account
   table, each sequence number one below its transaction's, under a
-  header the set's transactions validate against.
+  header the set's transactions validate against;
+* :func:`node_close_ledger` — that root plus the entries that let every
+  operation of such a set succeed at apply: the payments' destinations,
+  the offers' issuers and the sellers' trustlines.
 """
 
 from __future__ import annotations
@@ -49,17 +52,19 @@ from stellar_tpu_torch.ledger.ledger_txn import (
 )
 from stellar_tpu_torch.parallel.signer_tables import build_signer_table
 from stellar_tpu_torch.protocol import CURRENT_LEDGER_PROTOCOL_VERSION
+from stellar_tpu_torch.tx.account_utils import INT64_MAX
+from stellar_tpu_torch.tx.op_frame import account_key
 from stellar_tpu_torch.tx import signature_utils as su
 from stellar_tpu_torch.tx.signature_checker import SignatureChecker
 from stellar_tpu_torch.xdr import tx as xtx
 from stellar_tpu_torch.xdr import types as xt
-from stellar_tpu_torch.xdr.runtime import to_bytes
+from stellar_tpu_torch.xdr.runtime import from_bytes, to_bytes
 
 __all__ = ["keypair", "valid_items", "edge_corpus", "matching_rows",
            "random_rows", "hot_matching_rows", "r16_matching_rows",
            "r16_overflow_rows", "R16_OVERFLOW", "NODE_NETWORK_ID",
            "node_txset", "collect_candidates", "check_transaction",
-           "node_ledger", "NODE_MAX_TX_SET_SIZE"]
+           "node_ledger", "node_close_ledger", "NODE_MAX_TX_SET_SIZE"]
 
 # The least scalar whose signed radix-16 top digit exceeds the 8-entry
 # table: 0x8777...78 (an 8, 62 sevens, an 8). Digits in [-8, 8) below
@@ -548,4 +553,63 @@ def node_ledger(accounts,
     header.ledgerSeq = 2
     header.maxTxSetSize = NODE_MAX_TX_SET_SIZE
     root.set_header(header)
+    return root
+
+
+def _entry(entry_type, body) -> "xt.LedgerEntry":
+    return xt.LedgerEntry(
+        lastModifiedLedgerSeq=1,
+        data=xt.LedgerEntry._types[1].make(entry_type, body),
+        ext=xt.LedgerEntry._types[2].make(0))
+
+
+def node_close_ledger(accounts, envelopes,
+                      ledger_version: int = CURRENT_LEDGER_PROTOCOL_VERSION
+                      ) -> LedgerTxnRoot:
+    """:func:`node_ledger`'s root, plus what lets every operation of
+    ``node_txset``'s ``envelopes`` (XDR bytes) succeed when the set is
+    applied: an account for each payment's destination and for each
+    offer's issuer (single-key, balance 10^10, as the table's), and for
+    each offer a trustline of its source for the asset it buys,
+    authorized, limit ``INT64_MAX`` (the source's ``numSubEntries``
+    counts it). Each offer buys an asset of its own, so no two offers
+    cross. ``accounts`` is not changed."""
+    root = node_ledger(accounts, ledger_version=ledger_version)
+    T = xt.LedgerEntryType
+    store = root.store
+
+    def entry_of(raw):
+        return store.get(key_bytes(account_key(xt.account_id(raw))))
+
+    def ensure_account(raw):
+        if entry_of(raw) is None:
+            acc = xt.AccountEntry(
+                accountID=xt.account_id(raw), balance=10**10,
+                seqNum=1 << 32, numSubEntries=0, inflationDest=None,
+                flags=0, homeDomain=b"", thresholds=bytes((1, 0, 0, 0)),
+                signers=[], ext=xt.AccountEntry._types[9].make(0))
+            entry = _entry(T.ACCOUNT, acc)
+            store.put(key_bytes(entry_to_key(entry)), entry)
+
+    O = xtx.OperationType
+    for raw_env in envelopes:
+        tx = from_bytes(xtx.TransactionEnvelope, raw_env).value.tx
+        for op in tx.operations:
+            source = xtx.muxed_ed25519(op.sourceAccount
+                                       if op.sourceAccount is not None
+                                       else tx.sourceAccount)
+            if op.body.arm == O.PAYMENT:
+                ensure_account(xtx.muxed_ed25519(op.body.value.destination))
+            elif op.body.arm == O.MANAGE_SELL_OFFER:
+                buying = op.body.value.buying
+                ensure_account(buying.value.issuer.value)
+                line = _entry(T.TRUSTLINE, xt.TrustLineEntry(
+                    accountID=xt.account_id(source),
+                    asset=xt.TrustLineAsset.make(buying.arm, buying.value),
+                    balance=0, limit=INT64_MAX, flags=xt.AUTHORIZED_FLAG,
+                    ext=xt.TrustLineEntry._types[5].make(0)))
+                store.put(key_bytes(entry_to_key(line)), line)
+                seller = entry_of(source)
+                seller.data.value.numSubEntries += 1
+                store.put(key_bytes(entry_to_key(seller)), seller)
     return root

@@ -10,8 +10,7 @@ view the fee/limit consumers read (reference
 entry take the initial values below.
 
 The port's copy of ``stellar_tpu/ledger/network_config.py``, with the
-port's imports, but for ``effective_cost_params``: the Soroban host reads
-it, and it comes with the Soroban slice."""
+port's imports."""
 
 from __future__ import annotations
 
@@ -95,6 +94,21 @@ class SorobanNetworkConfig:
     # soroban/cost_model.py); a config upgrade pins explicit vectors
     cpu_cost_params: object = None
     mem_cost_params: object = None
+
+
+def effective_cost_params(cfg: "SorobanNetworkConfig", protocol: int,
+                          dimension: str):
+    """The active metered cost vector: upgraded values if a config
+    upgrade installed them, else the reference's initial table for the
+    protocol era."""
+    # getattr: test configs are ad-hoc stubs without the param fields
+    explicit = getattr(cfg, "cpu_cost_params"
+                       if dimension == "cpu" else "mem_cost_params",
+                       None)
+    if explicit is not None:
+        return explicit
+    from stellar_tpu_torch.soroban.cost_model import initial_cost_params
+    return initial_cost_params(protocol, dimension)
 
 
 # ---------------- CONFIG_SETTING ledger-entry binding ----------------

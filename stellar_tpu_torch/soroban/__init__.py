@@ -1,4 +1,6 @@
-"""The port's Soroban package. So far it holds only ``cost_model``; the
-reference's ``__init__`` also re-exports the host's ``HostError``,
-``InvokeOutput`` and ``invoke_host_function``, which come with the Soroban
-slice (ROADMAP.md)."""
+"""The port's copy of ``stellar_tpu/soroban/__init__.py``, with the port's
+imports."""
+
+from stellar_tpu_torch.soroban.host import (  # noqa: F401
+    HostError, InvokeOutput, invoke_host_function,
+)

@@ -1,5 +1,5 @@
-"""TransactionFrame: validation (reference
-``src/transactions/TransactionFrame.cpp``).
+"""TransactionFrame: validation, fee/seq processing, and apply
+(reference ``src/transactions/TransactionFrame.cpp``).
 
 Lifecycle (current protocol >= 19):
 
@@ -7,34 +7,37 @@ Lifecycle (current protocol >= 19):
   sequence number, signatures (low threshold + extra signers), balance
   can cover the fee, then per-op ``do_check_valid`` + op signature
   thresholds; used by the tx queue and txset validation.
+* ``process_fee_seq_num`` — ledger-close fee phase: charge
+  min(balance, fee) into the fee pool (no reserve check — reference
+  ``processFeeSeqNum``).
+* ``apply`` — re-validate under the apply snapshot, bump the sequence
+  number even when invalid (``processSeqNum``), settle signature
+  bookkeeping (one-time signer removal, BAD_AUTH_EXTRA), then apply each
+  operation in its own nested LedgerTxn, rolling everything back if any
+  op fails (``applyOperations``).
 
 Fee-bump envelopes are handled by :class:`FeeBumpTransactionFrame`.
 
 The port's copy of ``stellar_tpu/tx/transaction_frame.py``, with the
-port's imports, is its validation half. The apply half comes with the
-ledger close, beside ``ledger_manager`` and ``invariant``:
-``HALT_ON_INTERNAL_ERROR``, ``OP_APPLY_SLEEP``, ``_OP_SLEEP_TICK`` and
-``_op_apply_sleep`` at module level; ``process_fee_seq_num``,
-``process_seq_num``, ``remove_one_time_signers``, ``process_signatures``,
-``apply``, ``soroban_refund_amount``, ``_process_soroban_refund`` and
-``_apply_operations`` of :class:`TransactionFrame`; and
-``process_fee_seq_num`` and ``apply`` of
-:class:`FeeBumpTransactionFrame`. Every name here is the reference's,
-unchanged.
-"""
+port's imports."""
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
 from stellar_tpu_torch.crypto.sha import sha256
+from stellar_tpu_torch.ledger.ledger_txn import LedgerTxn
 from stellar_tpu_torch.tx.account_utils import (
     INT64_MAX, account_ext_v2, get_available_balance,
 )
 from stellar_tpu_torch.tx.op_frame import account_key, make_op_frame
 from stellar_tpu_torch.tx.signature_checker import SignatureChecker
+from stellar_tpu_torch.tx.sponsorship import (
+    remove_signer_with_possible_sponsorship,
+)
 from stellar_tpu_torch.xdr.results import (
-    TransactionResult, TransactionResultCode as TxCode, tx_result,
+    OperationResult, TransactionResult, TransactionResultCode as TxCode,
+    tx_result,
 )
 from stellar_tpu_torch.xdr.runtime import Packer, to_bytes
 from stellar_tpu_torch.xdr.tx import (
@@ -53,6 +56,30 @@ __all__ = [
     "ValidationType", "MutableTxResult", "TransactionFrame",
     "FeeBumpTransactionFrame", "make_transaction_frame",
 ]
+
+# escalate internal apply errors instead of failing the tx (reference
+# HALT_ON_INTERNAL_TRANSACTION_ERROR; set by Application from Config)
+HALT_ON_INTERNAL_ERROR = False
+
+# ([durations_us], [weights]) weighted per-op apply sleep, or None
+# (reference OP_APPLY_SLEEP_TIME_{DURATION,WEIGHT}_FOR_TESTING). The
+# pick rotates deterministically so stressed runs stay reproducible.
+OP_APPLY_SLEEP = None
+_OP_SLEEP_TICK = [0]
+
+
+def _op_apply_sleep():
+    import time as _time
+    durs, weights = OP_APPLY_SLEEP
+    total = sum(weights)
+    tick = _OP_SLEEP_TICK[0] % total
+    _OP_SLEEP_TICK[0] += 1
+    for d, w in zip(durs, weights):
+        if tick < w:
+            if d > 0:
+                _time.sleep(d / 1_000_000.0)
+            return
+        tick -= w
 
 
 class ValidationType:
@@ -472,6 +499,248 @@ class TransactionFrame:
         result.set_code(TxCode.txSUCCESS)
         return result
 
+    # ---------------- ledger-close processing ----------------
+
+    def process_fee_seq_num(self, ltx, base_fee: Optional[int]
+                            ) -> MutableTxResult:
+        """Fee phase: charge min(balance, fee) (reference
+        ``processFeeSeqNum``)."""
+        with LedgerTxn(ltx) as inner:
+            with inner.load_header() as hh:
+                header = hh.header
+                fee = self.fee(header, base_fee, applying=True)
+                result = MutableTxResult(fee_charged=fee)
+                src = inner.load(account_key(self.source_account_id()))
+                if src is None:
+                    raise RuntimeError("fee source account missing")
+                acc = src.data
+                if fee > 0:
+                    charged = min(acc.balance, fee)
+                    result.fee_charged = charged
+                    acc.balance -= charged
+                    header.feePool += charged
+                src.deactivate()
+            result.fee_changes = inner.get_changes()  # meta: feeProcessing
+            inner.commit()
+        self._fee_charged = result.fee_charged
+        return result
+
+    def process_seq_num(self, ltx):
+        """Consume the sequence number (reference ``processSeqNum``)."""
+        from stellar_tpu_torch.tx.ops.misc import (
+            maybe_update_account_on_seq_update,
+        )
+        with ltx.load(account_key(self.source_account_id())) as src:
+            if src.data.seqNum > self.seq_num:
+                raise RuntimeError("unexpected sequence number")
+            src.data.seqNum = self.seq_num
+            maybe_update_account_on_seq_update(ltx.header(), src.data)
+
+    def remove_one_time_signers(self, ltx):
+        """Drop pre-auth-tx signers matching this tx from every source
+        account (reference ``removeOneTimeSignerFromAllSourceAccounts``)."""
+        # collect unique source account ids (tx + op sources)
+        seen = []
+        for aid in [self.source_account_id()] + \
+                [op.source_account_id() for op in self.op_frames]:
+            if aid not in seen:
+                seen.append(aid)
+        h = self.contents_hash()
+        for aid in seen:
+            handle = ltx.load(account_key(aid))
+            if handle is None:
+                continue
+            acc = handle.data
+            doomed = [i for i, s in enumerate(acc.signers)
+                      if s.key.arm ==
+                      SignerKeyType.SIGNER_KEY_TYPE_PRE_AUTH_TX
+                      and s.key.value == h]
+            for i in reversed(doomed):
+                remove_signer_with_possible_sponsorship(
+                    ltx, ltx.header(), handle.entry, i)
+            handle.deactivate()
+
+    def process_signatures(self, cv: int, checker: SignatureChecker,
+                           ltx, result: MutableTxResult) -> bool:
+        """Post-validation signature settlement (reference
+        ``processSignatures``)."""
+        maybe_valid = cv == ValidationType.MAYBE_VALID
+        if not maybe_valid:
+            self.remove_one_time_signers(ltx)
+            return False
+
+        all_ops_valid = True
+        if result.code in (TxCode.txSUCCESS, TxCode.txFAILED):
+            with LedgerTxn(ltx) as scope:
+                for i, op in enumerate(self.op_frames):
+                    ok, fail = op.check_signature(
+                        checker, scope, for_apply=False)
+                    if not ok:
+                        result.op_results[i] = fail
+                        all_ops_valid = False
+                scope.rollback()
+
+        self.remove_one_time_signers(ltx)
+
+        if not all_ops_valid:
+            result.set_code(TxCode.txFAILED)
+            return False
+        if not checker.check_all_signatures_used():
+            result.set_code(TxCode.txBAD_AUTH_EXTRA)
+            return False
+        return maybe_valid
+
+    # ---------------- apply ----------------
+
+    def apply(self, ltx, meta: Optional[TxApplyMeta] = None,
+              charge_fee: bool = True) -> MutableTxResult:
+        """Apply under the close snapshot (reference
+        ``TransactionFrame::apply``). Returns the final result; state
+        effects are committed into ``ltx``."""
+        if meta is None:
+            meta = TxApplyMeta()
+        checker = self.make_signature_checker(ltx.header().ledgerVersion)
+        # the fee phase (process_fee_seq_num) already ran; carry what it
+        # actually charged so refunds can be computed against it
+        result = MutableTxResult(
+            fee_charged=getattr(self, "_fee_charged", 0))
+        # op results pre-seeded as successes so op signature failures can
+        # be recorded positionally
+        result.op_results = [op.make_result(0) for op in self.op_frames]
+
+        tx_level = LedgerTxn(ltx)
+        cv = self.common_valid(checker, tx_level, 0, applying=True,
+                               charge_fee=charge_fee, result=result)
+        if cv >= ValidationType.UPDATE_SEQ_NUM:
+            self.process_seq_num(tx_level)
+        sigs_valid = self.process_signatures(cv, checker, tx_level, result)
+        meta.tx_changes_before.extend(tx_level.get_changes())
+        tx_level.commit()
+
+        ok = sigs_valid and cv == ValidationType.MAYBE_VALID
+        if not ok:
+            if result.code == TxCode.txSUCCESS:
+                result.set_code(TxCode.txFAILED)
+            self._process_soroban_refund(ltx, result)
+            return result
+
+        result = self._apply_operations(checker, ltx, meta, result)
+        self._process_soroban_refund(ltx, result)
+        return result
+
+    def soroban_refund_amount(self, success: bool, cfg=None) -> int:
+        """Unused refundable resource fee: declared - non-refundable -
+        consumed(rent + events); consumption only counts on success."""
+        if not self.is_soroban():
+            return 0
+        from stellar_tpu_torch.ledger.network_config import compute_resource_fee
+        if cfg is None:
+            from stellar_tpu_torch.tx.ops.soroban_ops import (
+                default_soroban_config,
+            )
+            cfg = default_soroban_config()
+        res = self.tx.ext.value.resources
+        fp = res.footprint
+        non_ref, _ = compute_resource_fee(
+            cfg, res.instructions, len(fp.readOnly), len(fp.readWrite),
+            res.readBytes, res.writeBytes, self.size_bytes())
+        consumed = getattr(self, "_soroban_refundable_consumed", 0) \
+            if success else 0
+        return max(0, self.declared_soroban_resource_fee() - non_ref -
+                   consumed)
+
+    def _process_soroban_refund(self, ltx, result: MutableTxResult,
+                                refund_to=None):
+        """Return the unused refundable portion of the resource fee to
+        the fee source (reference ``processRefund``)."""
+        from stellar_tpu_torch.ledger.ledger_txn import soroban_config_of
+        refund = min(self.soroban_refund_amount(result.is_success,
+                                                soroban_config_of(ltx)),
+                     result.fee_charged)  # only what was charged
+        if refund <= 0:
+            return
+        with LedgerTxn(ltx) as scope:
+            src = scope.load(account_key(
+                refund_to if refund_to is not None
+                else self.source_account_id()))
+            if src is not None:
+                src.data.balance += refund
+                src.deactivate()
+                with scope.load_header() as hh:
+                    hh.header.feePool -= refund
+                result.fee_charged -= refund
+                scope.commit()
+            else:
+                scope.rollback()
+
+    def _apply_operations(self, checker, ltx, meta: TxApplyMeta,
+                          result: MutableTxResult) -> MutableTxResult:
+        """Per-op apply loop (reference ``applyOperations``)."""
+        success = True
+        op_metas = []
+        tx_txn = LedgerTxn(ltx)
+        try:
+            for i, op in enumerate(self.op_frames):
+                if OP_APPLY_SLEEP is not None:
+                    _op_apply_sleep()
+                op_txn = LedgerTxn(tx_txn)
+                ok, op_res = op.apply(checker, op_txn)
+                result.op_results[i] = op_res
+                if not ok:
+                    success = False
+                if success:
+                    op_metas.append(op_txn.get_changes())
+                if ok:
+                    # post-condition checks over the op's delta
+                    # (reference checkOnOperationApply via AppConnector)
+                    from stellar_tpu_torch.invariant import get_active_manager
+                    mgr = get_active_manager()
+                    if mgr is not None:
+                        mgr.check_on_operation_apply(
+                            op, op_res, op_txn.get_delta(),
+                            op_txn.header())
+                    op_txn.commit()
+                else:
+                    op_txn.rollback()
+            # a Begin without its matching End leaves a live sponsorship
+            # directive: the whole tx fails (reference
+            # TransactionFrame.cpp:1693, txBAD_SPONSORSHIP)
+            bad_sponsorship = False
+            if success:
+                from stellar_tpu_torch.tx.sponsorship import (
+                    has_sponsorship_entries,
+                )
+                if has_sponsorship_entries(tx_txn):
+                    success = False
+                    bad_sponsorship = True
+            if success:
+                tx_txn.commit()
+                meta.operations.extend(op_metas)
+                result.set_code(TxCode.txSUCCESS)
+            else:
+                tx_txn.rollback()
+                result.set_code(TxCode.txBAD_SPONSORSHIP
+                                if bad_sponsorship else TxCode.txFAILED)
+        except Exception as e:
+            if tx_txn._open:
+                tx_txn.rollback()
+            from stellar_tpu_torch.invariant.invariants import (
+                InvariantDoesNotHold,
+            )
+            if isinstance(e, InvariantDoesNotHold):
+                raise  # node-integrity failure: always fatal
+            result.set_code(TxCode.txINTERNAL_ERROR)
+            # reference default: the tx fails with txINTERNAL_ERROR and
+            # the node keeps closing; HALT_ON_INTERNAL_TRANSACTION_
+            # ERROR escalates for debugging (Config.h)
+            if HALT_ON_INTERNAL_ERROR:
+                raise
+            import logging
+            logging.getLogger("stellar_tpu.tx").exception(
+                "internal error applying tx %s",
+                self.contents_hash().hex())
+        return result
+
 
 def _v0_to_v1(tx_v0) -> Transaction:
     """Normalize a legacy TransactionV0 to the v1 shape it hashes as."""
@@ -621,6 +890,80 @@ class FeeBumpTransactionFrame:
         return result
 
     check_signature_for_account = TransactionFrame.check_signature_for_account
+
+    def process_fee_seq_num(self, ltx, base_fee: Optional[int]
+                            ) -> MutableTxResult:
+        with LedgerTxn(ltx) as inner:
+            with inner.load_header() as hh:
+                header = hh.header
+                fee = self.fee(header, base_fee, applying=True)
+                result = MutableTxResult(fee_charged=fee)
+                src = inner.load(account_key(self.fee_source_id()))
+                if src is None:
+                    raise RuntimeError("fee source account missing")
+                acc = src.data
+                if fee > 0:
+                    charged = min(acc.balance, fee)
+                    result.fee_charged = charged
+                    acc.balance -= charged
+                    header.feePool += charged
+                src.deactivate()
+            result.fee_changes = inner.get_changes()  # meta: feeProcessing
+            inner.commit()
+        self._fee_charged = result.fee_charged
+        return result
+
+    def apply(self, ltx, meta: Optional[TxApplyMeta] = None
+              ) -> MutableTxResult:
+        """Outer wraps the inner apply result (fee already charged in the
+        fee phase; inner applies with charge_fee=False). A one-time
+        pre-auth signer on the fee source is consumed first (reference
+        ``FeeBumpTransactionFrame::apply`` →
+        ``removeOneTimeSignerKeyFromFeeSource``)."""
+        if meta is None:
+            meta = TxApplyMeta()
+        fee_txn = LedgerTxn(ltx)
+        h = self.contents_hash()
+        handle = fee_txn.load(account_key(self.fee_source_id()))
+        if handle is not None:
+            acc = handle.data
+            doomed = [i for i, s in enumerate(acc.signers)
+                      if s.key.arm ==
+                      SignerKeyType.SIGNER_KEY_TYPE_PRE_AUTH_TX
+                      and s.key.value == h]
+            for i in reversed(doomed):
+                remove_signer_with_possible_sponsorship(
+                    fee_txn, fee_txn.header(), handle.entry, i)
+            handle.deactivate()
+        meta.tx_changes_before.extend(fee_txn.get_changes())
+        fee_txn.commit()
+
+        inner_res = self.inner.apply(ltx, meta, charge_fee=False)
+        result = MutableTxResult(
+            fee_charged=getattr(self, "_fee_charged", 0))
+        result.set_code(TxCode.txFEE_BUMP_INNER_SUCCESS
+                        if inner_res.is_success
+                        else TxCode.txFEE_BUMP_INNER_FAILED)
+        result.inner_result = inner_res
+        # a Soroban inner tx refunds unused resource fee to the OUTER
+        # fee source, which paid it (reference FeeBump processRefund)
+        from stellar_tpu_torch.ledger.ledger_txn import soroban_config_of
+        refund = min(self.inner.soroban_refund_amount(
+            inner_res.is_success, soroban_config_of(ltx)),
+            result.fee_charged)
+        if refund > 0:
+            with LedgerTxn(ltx) as scope:
+                src = scope.load(account_key(self.fee_source_id()))
+                if src is not None:
+                    src.data.balance += refund
+                    src.deactivate()
+                    with scope.load_header() as hh:
+                        hh.header.feePool -= refund
+                    result.fee_charged -= refund
+                    scope.commit()
+                else:
+                    scope.rollback()
+        return result
 
     def to_result_xdr(self, result: MutableTxResult) -> TransactionResult:
         from stellar_tpu_torch.xdr.results import (

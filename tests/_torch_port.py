@@ -1,5 +1,7 @@
 """Helpers shared by the port's node-slice tests (``test_torch_ledger.py``,
-``test_torch_tx_frame.py``, ``test_torch_tx_set.py``): the source
+``test_torch_tx_frame.py``, ``test_torch_tx_set.py``,
+``test_torch_bucket.py``, ``test_torch_ledger_close.py``,
+``test_torch_txmeta.py``): the source
 comparison of a copied module with the reference's, and the carrying of
 XDR values and ledgers from the port to the reference through their
 bytes (objects never cross the two packages)."""
@@ -18,23 +20,10 @@ ROOT = Path(__file__).resolve().parent.parent
 # What each partial copy leaves out, by top-level name and
 # ``Class.method``; ROADMAP.md's queue 1 lists the same names.
 PARTIAL = {
-    "ledger/network_config.py": {"effective_cost_params"},
     "tx/ops/soroban_ops.py": {
         "_load_with_ttl", "_extend_entry_ttl", "_write_ttl",
         "_SorobanBase", "InvokeHostFunctionOpFrame",
         "ExtendFootprintTTLOpFrame", "RestoreFootprintOpFrame"},
-    "tx/transaction_frame.py": {
-        "HALT_ON_INTERNAL_ERROR", "OP_APPLY_SLEEP", "_OP_SLEEP_TICK",
-        "_op_apply_sleep",
-        "TransactionFrame.process_fee_seq_num",
-        "TransactionFrame.process_seq_num",
-        "TransactionFrame.remove_one_time_signers",
-        "TransactionFrame.process_signatures", "TransactionFrame.apply",
-        "TransactionFrame.soroban_refund_amount",
-        "TransactionFrame._process_soroban_refund",
-        "TransactionFrame._apply_operations",
-        "FeeBumpTransactionFrame.process_fee_seq_num",
-        "FeeBumpTransactionFrame.apply"},
 }
 
 

@@ -2,6 +2,7 @@
 it plugs into the node's verify seam (``stellar_tpu.crypto.keys``) from the
 outside. Only tests import both packages."""
 
+import ast
 import os
 import re
 import subprocess
@@ -41,6 +42,25 @@ NODE_MODULES = (
     "tx.ops.sponsorship_ops", "tx.ops.trust_ops", "herder.surge_pricing",
     "herder.tx_set")
 
+# the node's ledger close: the ledger manager, the invariants, the
+# upgrades, the Soroban host's module, the bucket list with eviction and
+# the hot archive, the worker pool and the bucket-stream bridge
+CLOSE_MODULES = (
+    "utils.workers", "utils.native", "soroban", "soroban.host",
+    "herder.upgrades", "invariant", "invariant.invariants", "bucket",
+    "bucket.bucket", "bucket.bucket_list", "bucket.eviction",
+    "bucket.hot_archive", "ledger.ledger_manager")
+
+# modules the port names in a late import but lacks, each waiting for a
+# later slice (ROADMAP.md's known gaps): the Soroban host's wasm stack,
+# and the persistence of ``LedgerManager.from_persistence``
+KNOWN_GAPS = (
+    "stellar_tpu_torch.soroban.wasm", "stellar_tpu_torch.soroban.env",
+    "stellar_tpu_torch.soroban.native_wasm",
+    "stellar_tpu_torch.soroban.legacy_abi",
+    "stellar_tpu_torch.soroban.asset_contract",
+    "stellar_tpu_torch.bucket.bucket_list_db")
+
 
 def test_forbidden_imports_absent():
     files = _port_sources()
@@ -63,9 +83,8 @@ def test_forbidden_imports_absent():
                    "tx/signature_utils", "tx/signature_checker"):
         assert os.path.join(ROOT, "stellar_tpu_torch",
                             f"{module}.py") in files
-    for module in NODE_MODULES:
-        assert os.path.join(ROOT, "stellar_tpu_torch",
-                            *module.split(".")) + ".py" in files, module
+    for module in NODE_MODULES + CLOSE_MODULES:
+        assert _module_path("stellar_tpu_torch." + module) in files, module
     for path in files:
         with open(path) as f:
             hits = _FORBIDDEN.findall(f.read())
@@ -358,6 +377,182 @@ def test_node_txset_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert 0 < int(proc.stdout.strip().splitlines()[-1]) < 40
+
+
+def test_node_close_with_jax_blocked():
+    """A fresh interpreter in which importing jax or stellar_tpu fails
+    imports every module of the ledger-close slice and runs a miniature
+    of ``chip_smoke.py`` phase 22 on the CPU over the pure-Python oracle:
+    40 transactions of ``vectors.node_txset`` admitted over
+    ``vectors.node_ledger``, the accepted ones over
+    ``vectors.node_close_ledger``, nominated, replayed from the wire bytes
+    and closed by a ``LedgerManager`` with a close-meta consumer and every
+    invariant on; the C++ bucket runtime serves the bucket list. Its
+    header hash equals the reference's close of the same ledger, run
+    here."""
+    code = "\n".join([
+        "import sys, importlib, hashlib",
+        "sys.modules['jax'] = None",
+        "sys.modules['stellar_tpu'] = None",
+        "import numpy as np",
+        f"for m in {CLOSE_MODULES!r}:",
+        "    importlib.import_module('stellar_tpu_torch.' + m)",
+        "import stellar_tpu_torch.tx.ops",
+        "from stellar_tpu_torch import invariant",
+        "from stellar_tpu_torch.crypto import ed25519_ref, keys, vectors",
+        "from stellar_tpu_torch.crypto.batch_hasher import hash_many",
+        "from stellar_tpu_torch.herder import tx_set as ts",
+        "from stellar_tpu_torch.invariant.invariants import "
+        "InvariantManager",
+        "from stellar_tpu_torch.ledger import ledger_manager as lmm",
+        "from stellar_tpu_torch.ledger.ledger_txn import LedgerTxn",
+        "from stellar_tpu_torch.tx.transaction_frame import "
+        "make_transaction_frame",
+        "from stellar_tpu_torch.utils import native",
+        "from stellar_tpu_torch.xdr import ledger as xl, tx as xtx",
+        "from stellar_tpu_torch.xdr.runtime import from_bytes, to_bytes",
+        "keys.set_verifier_backend(ed25519_ref.verify)",
+        "rng = np.random.default_rng(55)",
+        "envs, accounts = vectors.node_txset(rng, single=5, multisig=22, "
+        "two_op=8, special=5, corrupt=0.06, short_multisig=2)",
+        "nid = vectors.NODE_NETWORK_ID",
+        "def frames_of(es):",
+        "    return [make_transaction_frame(nid, from_bytes("
+        "xtx.TransactionEnvelope, e)) for e in es]",
+        "adm = LedgerTxn(vectors.node_ledger(accounts))",
+        "ok = [e for e, f in zip(envs, frames_of(envs)) "
+        "if f.check_valid(adm).code == 0]",
+        "adm.rollback()",
+        "lm = lmm.LedgerManager(nid, vectors.node_close_ledger(accounts, "
+        "ok))",
+        "app, excluded = ts.make_tx_set_from_transactions(frames_of(ok), "
+        "lm.last_closed_header, lm.last_closed_hash)",
+        "assert excluded == []",
+        "raw = to_bytes(xl.GeneralizedTransactionSet, app.xdr)",
+        "got = ts.TxSetXDRFrame.from_bytes(raw).prepare_for_apply(nid)",
+        "for f, d in zip(got.frames, hash_many("
+        "[f.contents_preimage() for f in got.frames], device='cpu')):",
+        "    f._hash = d",
+        "metas = []",
+        "lm.close_meta_stream.append(lambda m: metas.append("
+        "to_bytes(xl.LedgerCloseMeta, m)))",
+        "invariant.set_active_manager(InvariantManager())",
+        "res = lm.close_ledger(lmm.LedgerCloseData(ledger_seq="
+        "lm.ledger_seq + 1, tx_set=got, close_time=5000))",
+        "invariant.set_active_manager(None)",
+        "assert res.failed_count == 0 and res.applied_count == len(ok), "
+        "(res.applied_count, res.failed_count)",
+        "assert len(metas) == 1 and native.available()",
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == "
+        "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
+        "sys.modules if sys.modules[m] is not None)",
+        "print(res.header_hash.hex())",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == _ref_node_close(55)
+
+
+def _ref_node_close(seed) -> str:
+    """The reference's close of the miniature above, as hex."""
+    import stellar_tpu.tx.ops  # noqa: F401
+    from stellar_tpu.crypto import ed25519_ref as jref
+    from stellar_tpu.herder import tx_set as jts
+    from stellar_tpu.ledger import ledger_manager as jlm
+    from stellar_tpu.ledger.ledger_txn import LedgerTxn
+    from stellar_tpu.tx.transaction_frame import make_transaction_frame
+    from stellar_tpu.xdr import ledger as jledger
+    from stellar_tpu.xdr import tx as jtx
+    from stellar_tpu.xdr.runtime import from_bytes, to_bytes
+
+    from tests._torch_port import ref_root
+    previous = keys._backend
+    keys.set_verifier_backend(jref.verify)
+    try:
+        envs, accounts = vectors.node_txset(
+            np.random.default_rng(seed), single=5, multisig=22, two_op=8,
+            special=5, corrupt=0.06, short_multisig=2)
+        nid = vectors.NODE_NETWORK_ID
+
+        def frames_of(es):
+            return [make_transaction_frame(nid, from_bytes(
+                jtx.TransactionEnvelope, e)) for e in es]
+        adm = LedgerTxn(ref_root(vectors.node_ledger(accounts)))
+        ok = [e for e, f in zip(envs, frames_of(envs))
+              if f.check_valid(adm).code == 0]
+        adm.rollback()
+        lm = jlm.LedgerManager(nid, ref_root(
+            vectors.node_close_ledger(accounts, ok)))
+        app, _ex = jts.make_tx_set_from_transactions(
+            frames_of(ok), lm.last_closed_header, lm.last_closed_hash)
+        got = jts.TxSetXDRFrame.from_bytes(to_bytes(
+            jledger.GeneralizedTransactionSet, app.xdr)) \
+            .prepare_for_apply(nid)
+        res = lm.close_ledger(jlm.LedgerCloseData(
+            ledger_seq=lm.ledger_seq + 1, tx_set=got, close_time=5000))
+    finally:
+        keys.set_verifier_backend(previous)
+        keys.flush_verify_cache()
+    return res.header_hash.hex()
+
+
+def _package_names(path):
+    """The names an ``__init__.py`` binds at its top level."""
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names |= {t.id for t in targets if isinstance(t, ast.Name)}
+    return names
+
+
+def _module_path(name):
+    """The file of a ``stellar_tpu_torch`` module or package, or None."""
+    base = os.path.join(ROOT, *name.split("."))
+    for path in (base + ".py", os.path.join(base, "__init__.py")):
+        if os.path.isfile(path):
+            return path
+    return None
+
+
+def test_every_port_import_resolves_but_the_known_gaps():
+    """Every ``import`` in the port, late ones inside functions too,
+    names a ``stellar_tpu_torch`` module that exists (a name imported
+    from a package must be bound in its ``__init__`` or be a submodule),
+    except exactly ``KNOWN_GAPS``: the modules of later slices that
+    ROADMAP.md lists."""
+    missing = {}
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                wanted = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                    and node.module:
+                wanted = [node.module]
+                init = _module_path(node.module)
+                if init is not None and init.endswith("__init__.py"):
+                    bound = _package_names(init)
+                    wanted += [f"{node.module}.{a.name}" for a in node.names
+                               if a.name not in bound]
+            else:
+                continue
+            for name in wanted:
+                if name.split(".")[0] == "stellar_tpu_torch" and \
+                        _module_path(name) is None:
+                    missing.setdefault(name, []).append(
+                        f"{os.path.relpath(path, ROOT)}:{node.lineno}")
+    assert sorted(missing) == sorted(KNOWN_GAPS), missing
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    for name in KNOWN_GAPS:
+        assert name.replace("stellar_tpu_torch.", "") in roadmap, name
 
 
 def test_node_verify_seam():
