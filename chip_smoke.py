@@ -293,7 +293,51 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    verify engine's span, the ``bucket.addBatch`` zone and the rest (the
    fee and apply phases), the roots' and ``LedgerManager`` s' build
    times, the nomination, (c)'s and (d)'s closes;
-23. fault domains, last — on the 4-index verifier: ``fail-device`` on
+23. catchup on the card — ``WorkScheduler(VirtualClock(VIRTUAL_TIME)).
+   schedule(CatchupWork(lm, archive, CatchupConfiguration(127, mode,
+   count)))``: the history archive state, the checkpoints' downloads and
+   decode, the chain verified (one K3 over ledgers 3-127's 125 headers),
+   bucket adoption with the hot archive, the coalesced signature
+   prefetch of a checkpoint (``COALESCE_FLUSH_SIGS``, 16,384 triples in
+   one ``batch_verify_into_cache``: one K1 cold or K2 hot), then 64
+   replayed ``close_ledger`` calls each checked against the archive's
+   header hash. ``BASELINE.json`` config 3 at full width a ledger, cut
+   to one replayed checkpoint: ``vectors.catchup_plan`` from
+   ``CATCHUP_SEED``, 256 senders and 256 destinations, ledger 3
+   upgrading to state archival (two entries evicted into the hot
+   archive) and ``maxTxSetSize`` 1,000, ledgers 4-63 empty, 64-127 each
+   one payment from every sender; signed on a process pool (its seconds
+   printed apart), built by the port's closes and published by a
+   ``HistoryManager`` into a ``FileArchive`` in a temporary directory.
+   Passes, each after a verify-cache flush: (a) ``RECENT`` (count 63:
+   checkpoint 63 adopted, 64-127 replayed) on a fresh node, 2 times with
+   the signer-table cache off: one K1, one K3, no K2, no verify-cache miss
+   inside the closes, the oracle agreeing with the cache on a seeded
+   sample of the flushed triples; (b) the same hot, 2 times, after the
+   256 tables are built by one ``batch_verify_into_cache`` of (a)'s
+   flushed triples (what the prefetch of an untimed pass would do): one
+   K2, one K3, no K1; (c)
+   ``SKIP_KNOWN_RESULTS``: no K1 or K2, one K3 a replayed ledger (the
+   contents hashes) besides the chain's; (d) ``MINIMAL``: buckets only,
+   one K3, no K1 or K2; (e) a node with ``NodePersistence(Database(...),
+   BucketManager(...))`` runs (a)'s catchup with every close saved, and
+   copies of its files restore with ``LedgerManager.from_persistence`` at
+   the reference's ``INDEX_CUTOFF_BYTES`` and at 0 (every bucket through
+   ``DiskBucket``'s index and SipHash); each restored node, and (a)'s in
+   memory, closes ledger 128 (256 more payments). Gates: ledger 127 is
+   ``CATCHUP_LCL_HASH`` in the build and after every pass, every
+   ``RECENT`` pass replays the 64 ledgers 64-127, every replayed header
+   hash is the archive's, ``hashlib`` agrees with every verified header,
+   each pass's K1/K2/K3 counts, every ledger 128 is
+   ``CATCHUP_NEXT_HASH`` (both pins the reference's chain), the dispatch
+   clean. Printed: each pass's wall and replayed ledgers a second, p50
+   and p90 of the replayed closes, the chain verify beside hashlib, the
+   download and decode, bucket downloads, adoption, the verify and hash
+   engines' spans (the coalesced prefetch, the chain), the ``ledger.close``
+   and ``bucket.addBatch`` zones and the fee and apply phases, the
+   engines' share of the wall; the build's signing, closes, nomination
+   and archive bytes; (e)'s save a close, restores and ledger 128 closes;
+24. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -313,10 +357,14 @@ passes and K2 and K3 over its hot ones (``launches_node``,
 K3 over its hot ones (``launches_txset``, ``launches_txset_hot``), K1
 over phase 22 (a)'s passes (``launches_close_config1``), K1 and K3 over
 its cold replayed closes and K2 and K3 over its hot ones
-(``launches_close``, ``launches_close_hot``). After every main-path
+(``launches_close``, ``launches_close_hot``), K1, K2 and K3 over each
+pass of phase 23 (``launches_catchup`` over (a), ``launches_catchup_hot``
+over (b), ``launches_catchup_build``, ``_skip``, ``_minimal``,
+``_persist`` and ``_next`` for the build, (c), (d), (e)'s catchup and
+(e)'s three ledger-128 tx sets and closes). After every main-path
 phase the dispatch must be clean: no device fault (no retry, every
 breaker closed and never opened), no audit mismatch, no conviction; only
-phases 16, 18 (c) and (e), and 23 expect otherwise. The
+phases 16, 18 (c) and (e), and 24 expect otherwise. The
 engine has no host failover, so no row of a card is ever served by the
 host. Before the last line, one ``{"kernels": [...]}`` line holds every
 kernel's launches, times, bound and build; the last line is ``{"ok":
@@ -334,8 +382,10 @@ import inspect
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -346,6 +396,10 @@ try:
 
     import stellar_tpu_torch.tx.ops  # noqa: F401 (fills the op registry)
     from stellar_tpu_torch import invariant
+    from stellar_tpu_torch.bucket import bucket_index
+    from stellar_tpu_torch.bucket.bucket_manager import BucketManager
+    from stellar_tpu_torch.bucket.hot_archive import header_bucket_list_hash
+    from stellar_tpu_torch.catchup import catchup
     from stellar_tpu_torch.crypto import ed25519_ref as ref
     from stellar_tpu_torch.crypto import (fleet, ingress, keys, native_prep,
                                           native_verify, tenant, vectors,
@@ -356,7 +410,9 @@ try:
     from stellar_tpu_torch.crypto.batch_verifier import (
         BatchVerifier, Ed25519HotWorkload, Ed25519Workload, TrickleBatcher,
         default_verifier)
+    from stellar_tpu_torch.database import Database, NodePersistence
     from stellar_tpu_torch.herder import tx_set
+    from stellar_tpu_torch.history import history_manager
     from stellar_tpu_torch.invariant.invariants import InvariantManager
     from stellar_tpu_torch.ledger import ledger_manager
     from stellar_tpu_torch.ledger.ledger_txn import LedgerTxn, key_bytes
@@ -372,11 +428,13 @@ try:
     from stellar_tpu_torch.utils.device import resolve_device
     from stellar_tpu_torch.utils.metrics import registry
     from stellar_tpu_torch.utils.timeline import pipeline_timeline
+    from stellar_tpu_torch.utils.timer import VIRTUAL_TIME, VirtualClock
     from stellar_tpu_torch.utils.transfer_ledger import (
         DEFAULT_FP_MAX_BYTES, transfer_ledger)
     from stellar_tpu_torch.tx import tx_test_utils
     from stellar_tpu_torch.tx.op_frame import account_key
     from stellar_tpu_torch.tx.transaction_frame import make_transaction_frame
+    from stellar_tpu_torch.work.work import WorkScheduler
     from stellar_tpu_torch.xdr import ledger as xledger
     from stellar_tpu_torch.xdr import results as xresults
     from stellar_tpu_torch.xdr import tx as xtx
@@ -497,7 +555,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 23's per-device backoff: far longer than a TxSet call (tens of
+# phase 24's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -588,6 +646,26 @@ CONFIG1_CLOSE_HASH = "54892cc957c8aa2452189c61983a6a3cb2ef799d831ce11766a7a740ff
 CONFIG2_APPLIED = 963
 CONFIG2_CLOSE_HASH = "703649b1b5d89f6667d078687e56e502d4f4a00a2ee947bd14bcc3eb77384c7b"
 CONFIG2_META_HASH = "1703825e8d2e7ddfca3bd083736e3efa5a217f1f4bb96bdcae5118e25f7866aa"
+# Phase 23: BASELINE.json config 3 at full width a ledger, cut to one
+# replayed checkpoint (vectors.catchup_plan). The pins are the
+# reference's chain from the same seed: ledger 127's header hash and the
+# hash of the close of ledger 128 over it (tests/test_torch_catchup.py::
+# test_catchup_pin_is_the_reference_chain recomputes both).
+CATCHUP_SEED = 20261019
+CATCHUP_SENDERS = 256
+CATCHUP_FIRST_FULL = 64
+CATCHUP_LAST = 127
+CATCHUP_COUNT = 63          # RECENT: adopt checkpoint 63, replay 64-127
+CATCHUP_REPLAYED = CATCHUP_LAST - CATCHUP_COUNT
+CATCHUP_SIGS = CATCHUP_SENDERS * (CATCHUP_LAST - CATCHUP_FIRST_FULL + 1)
+CATCHUP_HEADERS = CATCHUP_LAST - 2   # ledgers 3-127 in the archive
+CATCHUP_COLD_PASSES = 2
+CATCHUP_HOT_PASSES = 2
+CATCHUP_SAMPLE = 64
+CATCHUP_SIGN_WORKERS = 8
+CATCHUP_PASSPHRASE = "test-net"
+CATCHUP_LCL_HASH = "3c06080666c149073e10014aa0b2a79c6731179ea521963bbad9696903394a16"
+CATCHUP_NEXT_HASH = "7fd136b076d648234b66c52a8ddae47e94139aebc95a1f797b705282f5b6b887"
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -3834,18 +3912,21 @@ def _close_root_lm(build_root, nid):
     return lm, root_s, time.perf_counter() - t
 
 
+def _zone_ms(before, after, name):
+    """A ``tracing.span_totals()`` timer's ms between two readings."""
+    a, b = after.get(name), before.get(name)
+    return (a["sum_ms"] if a else 0.0) - (b["sum_ms"] if b else 0.0)
+
+
 def _close_spans(before, after):
     """Inside one close, from ``tracing.span_totals()`` deltas: the
     ``ledger.close`` zone, the verify engine's blocking span, the
     ``bucket.addBatch`` zone and the rest (the fee and apply phases, the
     hot archive, the eviction scan, the header), ms."""
-    def zone_ms(name):
-        a, b = after.get(name), before.get(name)
-        return (a["sum_ms"] if a else 0.0) - (b["sum_ms"] if b else 0.0)
-    out = {"close_zone": zone_ms("zone.ledger.close"),
+    out = {"close_zone": _zone_ms(before, after, "zone.ledger.close"),
            "verify_span": batch_engine.dispatch_attribution(
                before, after)["blocking_span_per_rep_ms"],
-           "add_batch": zone_ms("zone.bucket.addBatch")}
+           "add_batch": _zone_ms(before, after, "zone.bucket.addBatch")}
     out["rest"] = out["close_zone"] - out["verify_span"] - out["add_batch"]
     return out
 
@@ -4167,6 +4248,491 @@ def phase_node_close(info, traffic):
     return res, launches
 
 
+def _catchup_build(tmp):
+    """Phase 23's setup: the plan from ``CATCHUP_SEED``, its payments
+    signed on a process pool, then the port's closes from genesis to
+    ledger 127 (each through the close's own signature prefetch: K1 on a
+    first sight, K2 after), every close handed to a ``HistoryManager``
+    over a ``FileArchive`` in ``tmp`` that publishes checkpoints 63 and
+    127."""
+    plan = vectors.catchup_plan(np.random.default_rng(CATCHUP_SEED),
+                                senders=CATCHUP_SENDERS,
+                                first_full=CATCHUP_FIRST_FULL,
+                                last=CATCHUP_LAST)
+    nid = tx_test_utils.TEST_NETWORK_ID
+    workers = max(1, min(CATCHUP_SIGN_WORKERS, os.cpu_count() or 1))
+    t = time.perf_counter()
+    envs = vectors.catchup_envelopes(
+        plan, range(CATCHUP_FIRST_FULL, CATCHUP_LAST + 2), nid,
+        workers=workers)
+    res = {"sign_s": time.perf_counter() - t, "sign_workers": workers,
+           "signatures": sum(len(v) for v in envs.values()),
+           "nominate_s": 0.0, "close_s": 0.0}
+    archive = history_manager.FileArchive(os.path.join(tmp, "archive"))
+    hm = history_manager.HistoryManager([archive], CATCHUP_PASSPHRASE)
+    t = time.perf_counter()
+    lm = ledger_manager.LedgerManager(nid, vectors.catchup_root(plan))
+    res["genesis_s"] = time.perf_counter() - t
+    ups = vectors.catchup_upgrades()
+    _zero_counts()
+    t_build = time.perf_counter()
+    while lm.ledger_seq < CATCHUP_LAST:
+        seq = lm.ledger_seq + 1
+        frames = [make_transaction_frame(nid, from_bytes(
+            xtx.TransactionEnvelope, e)) for e in envs.get(seq, ())]
+        t = time.perf_counter()
+        txset, excluded = tx_set.make_tx_set_from_transactions(
+            frames, lm.last_closed_header, lm.last_closed_hash)
+        res["nominate_s"] += time.perf_counter() - t
+        check(not excluded, f"catchup build: ledger {seq} excluded "
+              f"{len(excluded)} of {len(frames)}")
+        t = time.perf_counter()
+        out = lm.close_ledger(ledger_manager.LedgerCloseData(
+            ledger_seq=seq, tx_set=txset,
+            close_time=vectors.catchup_close_time(seq),
+            upgrades=ups if seq == 3 else []))
+        res["close_s"] += time.perf_counter() - t
+        check(out.failed_count == 0 and out.applied_count == len(frames),
+              f"catchup build: ledger {seq} applied {out.applied_count}, "
+              f"failed {out.failed_count}")
+        hm.ledger_closed(out, txset, lm.bucket_list,
+                         hot_archive=lm.hot_archive)
+    res["build_s"] = time.perf_counter() - t_build
+    launches = _counts()
+    header = lm.last_closed_header
+    check(hm.published_checkpoints == [63, CATCHUP_LAST],
+          f"catchup build: published {hm.published_checkpoints}")
+    check(header.maxTxSetSize >= CATCHUP_SENDERS,
+          f"catchup build: maxTxSetSize {header.maxTxSetSize}")
+    check(not lm.hot_archive.is_empty(),
+          "catchup build: the hot archive is empty")
+    check(lm.last_closed_hash.hex() == CATCHUP_LCL_HASH,
+          f"catchup build: ledger {CATCHUP_LAST} is "
+          f"{lm.last_closed_hash.hex()}, not the reference's")
+    sizes = [os.path.getsize(os.path.join(base, n))
+             for base, _dirs, names in os.walk(archive.root) for n in names]
+    res.update(archive_bytes=sum(sizes), archive_files=len(sizes),
+               protocol=header.ledgerVersion,
+               max_tx_set_size=header.maxTxSetSize,
+               accounts=2 * CATCHUP_SENDERS)
+    return plan, envs, archive, res, launches
+
+
+class _Wrapped:
+    """Functions wrapped while it is entered: each ``(owner, attribute,
+    wrap)`` is replaced by ``wrap(function)`` on entry and put back on
+    exit (a class's ``staticmethod`` stays one)."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self._saved = []
+
+    def __enter__(self):
+        for owner, attr, wrap in self.targets:
+            raw = owner.__dict__[attr]
+            if isinstance(raw, staticmethod):
+                new = staticmethod(wrap(raw.__func__))
+            else:
+                new = wrap(raw)
+            self._saved.append((owner, attr, raw))
+            setattr(owner, attr, new)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, raw in reversed(self._saved):
+            setattr(owner, attr, raw)
+        self._saved.clear()
+
+
+def _timing(add):
+    """A ``_Wrapped`` wrap that hands ``add`` each call's seconds."""
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                add(time.perf_counter() - t)
+        return timed
+    return wrap
+
+
+def _catchup_pass(archive, mode, count=0, lm=None, record=None):
+    """One ``CatchupWork`` to ledger 127 on a virtual clock's
+    ``WorkScheduler``, of a fresh node (or ``lm``), the verify cache
+    flushed and the launch counts set to 0 first: ``(node, measures)``.
+    ``record`` receives the triples of each ``batch_verify_into_cache``
+    call. Gates: the work succeeds at ``CATCHUP_LCL_HASH``, the live
+    bucket list is the header's, every replayed header hash is the
+    archive's and ``hashlib`` gives every verified header's."""
+    keys.flush_verify_cache()
+    lm = lm or ledger_manager.LedgerManager(tx_test_utils.TEST_NETWORK_ID)
+    closes, hashes, marks = [], [], {}
+    spans = collections.defaultdict(float)
+
+    def timed_close(close):
+        def wrapped(node, lcd):
+            t = time.perf_counter()
+            out = close(node, lcd)
+            closes.append((time.perf_counter() - t) * 1e3)
+            hashes.append(out.header_hash)
+            return out
+        return wrapped
+
+    def marked_prefetch(prefetch):
+        def wrapped(*args, **kwargs):
+            marks["before"] = keys.get_verify_cache_stats()["misses"]
+            out = prefetch(*args, **kwargs)
+            marks["after"] = keys.get_verify_cache_stats()["misses"]
+            return out
+        return wrapped
+
+    def recorded(batch_verify):
+        def wrapped(items):
+            items = list(items)
+            record.append(items)
+            return batch_verify(items)
+        return wrapped
+
+    def span(label):
+        return _timing(lambda s: spans.__setitem__(label, spans[label] + s))
+    hm = history_manager.HistoryManager
+    targets = [(ledger_manager.LedgerManager, "close_ledger", timed_close),
+               (catchup, "_prefetch_checkpoint_sigs", marked_prefetch),
+               (catchup, "verify_ledger_chain", span("chain_verify")),
+               (hm, "get_checkpoint", span("download_decode")),
+               (hm, "get_bucket", span("bucket_download")),
+               (catchup, "apply_buckets_catchup", span("adopt"))]
+    if record is not None:
+        targets.append((keys, "batch_verify_into_cache", recorded))
+    ws = WorkScheduler(VirtualClock(VIRTUAL_TIME))
+    wk = catchup.CatchupWork(lm, archive, catchup.CatchupConfiguration(
+        CATCHUP_LAST, mode, count=count))
+    _zero_counts()
+    misses0 = keys.get_verify_cache_stats()["misses"]
+    before = tracing.span_totals()
+    t = time.perf_counter()
+    with _Wrapped(*targets):
+        ws.schedule(wk)
+        done = ws.run_until_done(3600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    after = tracing.span_totals()
+    launches = _counts()
+    label = f"catchup ({mode})"
+    check(done and wk.state == "SUCCESS", f"{label}: the work ended "
+          f"{wk.state}")
+    header = lm.last_closed_header
+    check(lm.ledger_seq == CATCHUP_LAST and
+          lm.last_closed_hash.hex() == CATCHUP_LCL_HASH,
+          f"{label}: ledger {lm.ledger_seq} at "
+          f"{lm.last_closed_hash.hex()}, not the reference's")
+    check(header_bucket_list_hash(lm.bucket_list.hash(), lm.hot_archive,
+                                  header.ledgerVersion) ==
+          header.bucketListHash,
+          f"{label}: the bucket lists are not the header's")
+    by_seq = {h.header.ledgerSeq: h.hash for h in wk.verified_headers}
+    first = CATCHUP_LAST - len(hashes) + 1
+    check(hashes == [by_seq[s] for s in range(first, CATCHUP_LAST + 1)],
+          f"{label}: a replayed header differs from the archive's")
+    check(len(wk.verified_headers) == CATCHUP_HEADERS,
+          f"{label}: {len(wk.verified_headers)} headers verified")
+    if mode == "RECENT":
+        check(len(closes) == CATCHUP_REPLAYED,
+              f"{label}: {len(closes)} ledgers replayed, not "
+              f"{CATCHUP_REPLAYED}")
+    blobs = [to_bytes(xledger.LedgerHeader, h.header)
+             for h in wk.verified_headers]
+    t = time.perf_counter()
+    digests = [hashlib.sha256(b).digest() for b in blobs]
+    hashlib_ms = (time.perf_counter() - t) * 1e3
+    check(digests == [h.hash for h in wk.verified_headers],
+          f"{label}: hashlib disagrees with the archive's headers")
+    close_zone = _zone_ms(before, after, "zone.ledger.close")
+    add_batch = _zone_ms(before, after, "zone.bucket.addBatch")
+    verify_span = batch_engine.dispatch_attribution(
+        before, after)["blocking_span_per_rep_ms"]
+    hash_span = batch_engine.phase_attribution(
+        before, after, span_ns="hash")["blocking_span_per_rep_ms"]
+    res = {"mode": mode, "count": count, "wall_s": wall,
+           "replayed": len(closes), "ledgers_per_s": len(closes) / wall,
+           "launches": launches,
+           "misses": keys.get_verify_cache_stats()["misses"] - misses0,
+           "spans_ms": {
+               "chain_verify": spans["chain_verify"] * 1e3,
+               "chain_hashlib": hashlib_ms,
+               "download_decode": spans["download_decode"] * 1e3,
+               "bucket_download": spans["bucket_download"] * 1e3,
+               "adopt": spans["adopt"] * 1e3,
+               "verify_span": verify_span, "hash_span": hash_span,
+               "closes": sum(closes), "close_zone": close_zone,
+               "add_batch": add_batch,
+               "fee_and_apply": close_zone - add_batch},
+           "engines_share": (verify_span + hash_span) / (wall * 1e3)}
+    if closes:
+        res["close_p50_ms"] = float(np.percentile(closes, 50))
+        res["close_p90_ms"] = float(np.percentile(closes, 90))
+    if marks:
+        res["prefetch_misses"] = marks["after"] - marks["before"]
+        res["close_misses"] = res["misses"] - res["prefetch_misses"]
+    return lm, res
+
+
+def _catchup_gate(r, label, want):
+    """The launches a pass must make, and (where it replays) no verify
+    cache miss inside its closes."""
+    got = {k: r["launches"][k] for k in want}
+    check(got == want, f"catchup ({label}): launches {r['launches']}, the "
+          f"pass must make {want}")
+    if "close_misses" in r:
+        check(r["close_misses"] == 0, f"catchup ({label}): "
+              f"{r['close_misses']} verify cache misses in the closes")
+
+
+def _oracle_sample(flushed):
+    """The oracle against the verify cache on a seeded sample of the
+    triples the coalesced prefetch flushed: every verdict True in both.
+    Returns the sample's size and the oracle's seconds."""
+    rng = np.random.default_rng(CATCHUP_SEED)
+    pick = rng.choice(len(flushed), CATCHUP_SAMPLE, replace=False)
+    t = time.perf_counter()
+    got = [(ref.verify(*flushed[i]), keys.cached_verify_sig(*flushed[i]))
+           for i in pick]
+    check(all(o is True and c is True for o, c in got),
+          f"catchup (a): the oracle and the verify cache disagree on the "
+          f"sample: {[g for g in got if g != (True, True)][:4]}")
+    return len(got), time.perf_counter() - t
+
+
+def _build_tables(flushed):
+    """(b)'s tables: the verify cache flushed, then one
+    ``batch_verify_into_cache`` of the triples (a)'s prefetch flushed,
+    with the signer-table cache on, as the prefetch of a catchup pass
+    would make it; its seconds and launches."""
+    keys.flush_verify_cache()
+    _zero_counts()
+    t = time.perf_counter()
+    keys.batch_verify_into_cache(flushed)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t, "launches": _counts()}
+
+
+def _persistence_pass(archive, tmp, envs, memory_lm):
+    """(e): a node with ``NodePersistence`` runs (a)'s catchup with every
+    close saved; its files are copied; each copy is restored with
+    ``LedgerManager.from_persistence``, once at the reference's
+    ``INDEX_CUTOFF_BYTES`` and once with it 0 (every bucket through
+    ``DiskBucket``'s index), and each restored node closes ledger 128,
+    as does the in-memory node ``memory_lm``."""
+    nid = tx_test_utils.TEST_NETWORK_ID
+    base = os.path.join(tmp, "node")
+    os.makedirs(base)
+    pers = NodePersistence(Database(os.path.join(base, "node.db")),
+                           BucketManager(os.path.join(base, "buckets")))
+    saves = []
+    with _Wrapped((NodePersistence, "save_ledger",
+                   _timing(lambda s: saves.append(s * 1e3)))):
+        lm, res = _catchup_pass(archive, "RECENT", CATCHUP_COUNT,
+                                lm=ledger_manager.LedgerManager(
+                                    nid, persistence=pers))
+    pers.db.close()
+    check(len(saves) == res["replayed"],
+          f"catchup (e): {len(saves)} saves over {res['replayed']} closes")
+    res["save_p50_ms"] = float(np.percentile(saves, 50))
+    res["save_p90_ms"] = float(np.percentile(saves, 90))
+    res["saved_bytes"] = sum(
+        os.path.getsize(os.path.join(b, n))
+        for b, _d, names in os.walk(base) for n in names)
+    frames_128 = envs[CATCHUP_LAST + 1]
+
+    def close_next(node):
+        _zero_counts()
+        frames = [make_transaction_frame(nid, from_bytes(
+            xtx.TransactionEnvelope, e)) for e in frames_128]
+        txset, excluded = tx_set.make_tx_set_from_transactions(
+            frames, node.last_closed_header, node.last_closed_hash)
+        check(not excluded, f"catchup (e): {len(excluded)} excluded")
+        t = time.perf_counter()
+        out = node.close_ledger(ledger_manager.LedgerCloseData(
+            ledger_seq=node.ledger_seq + 1, tx_set=txset,
+            close_time=vectors.catchup_close_time(node.ledger_seq + 1)))
+        ms = (time.perf_counter() - t) * 1e3
+        check(out.failed_count == 0 and out.applied_count == len(frames),
+              f"catchup (e): ledger 128 applied {out.applied_count}, failed "
+              f"{out.failed_count}")
+        check(out.header_hash.hex() == CATCHUP_NEXT_HASH,
+              f"catchup (e): ledger 128 is {out.header_hash.hex()}, not the "
+              "reference's")
+        nexts.append(_counts())
+        return ms
+    nexts = []
+    res["restored"] = {}
+    cutoff0 = bucket_index.INDEX_CUTOFF_BYTES
+    for name, cutoff in (("default", cutoff0), ("0", 0)):
+        path = os.path.join(tmp, f"node-cutoff-{name}")
+        shutil.copytree(base, path)
+        bucket_index.INDEX_CUTOFF_BYTES = cutoff
+        try:
+            t = time.perf_counter()
+            p = NodePersistence(Database(os.path.join(path, "node.db")),
+                                BucketManager(os.path.join(path, "buckets")))
+            node = ledger_manager.LedgerManager.from_persistence(nid, p)
+            restore_s = time.perf_counter() - t
+            check(node is not None and
+                  node.last_closed_hash == lm.last_closed_hash and
+                  node.bucket_list.hash() == memory_lm.bucket_list.hash() and
+                  node.hot_archive.hash() == memory_lm.hot_archive.hash() and
+                  getattr(node.root.store, "is_bucket_backed", False),
+                  f"catchup (e): the restore at cutoff {cutoff} is not "
+                  "(a)'s node")
+            res["restored"][name] = {"cutoff_bytes": cutoff,
+                                     "restore_s": restore_s,
+                                     "close_128_ms": close_next(node)}
+            p.db.close()
+        finally:
+            bucket_index.INDEX_CUTOFF_BYTES = cutoff0
+    res["memory_close_128_ms"] = close_next(memory_lm)
+    res["launches_next"] = _sum_counts([{"launches": c} for c in nexts])
+    return res
+
+
+def _pass_line(tag, runs):
+    """One printed line over a mode's timed passes: p50 over passes of
+    the wall and each span, and of the replayed closes."""
+    def med(key, sub=None):
+        vals = [r["spans_ms"][key] if sub else r[key] for r in runs]
+        return float(np.median(vals))
+    spans = ", ".join(f"{k} {med(k, True):.3f}" for k in (
+        "chain_verify", "chain_hashlib", "download_decode",
+        "bucket_download", "adopt", "verify_span", "hash_span",
+        "close_zone", "add_batch", "fee_and_apply"))
+    closes = ""
+    if runs[0]["replayed"]:
+        closes = (f"; replayed closes p50 {med('close_p50_ms'):.3f} ms, p90 "
+                  f"{med('close_p90_ms'):.3f} ms")
+    print(f"[catchup] {tag}: {len(runs)} pass(es), wall p50 "
+          f"{med('wall_s'):.3f} s ({[round(r['wall_s'], 3) for r in runs]}),"
+          f" {med('ledgers_per_s'):.2f} replayed ledgers/s{closes}; spans "
+          f"ms (p50): {spans}; engines' share of the wall "
+          f"{med('engines_share'):.4f}; launches {runs[-1]['launches']}")
+
+
+def phase_catchup_chain(info):
+    """Phase 23: catchup on the card. A chain built by the port from
+    ``CATCHUP_SEED`` and published to a ``FileArchive``; then (a)
+    ``RECENT`` cold, (b) ``RECENT`` hot, (c) ``SKIP_KNOWN_RESULTS``, (d)
+    ``MINIMAL``, (e) the persistence and the restart at both index
+    cutoffs. Each pass's K1, K2 and K3 counts are set to 0 just before
+    it and read just after."""
+    t0 = time.perf_counter()
+    check(keys._backend is None, "catchup: a verify backend is installed")
+    check(batch_engine.device_available(block=True),
+          "catchup: the device probe did not answer")
+    check(keys.accelerated_verify_available(),
+          "catchup: the replay would not coalesce its prefetch")
+    res = {"card": info["smi"]}
+    launches = {}
+    one = {"verify_cold": 1, "verify_hot": 0, "sha256": 1}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-catchup-") as tmp:
+        plan, envs, archive, res["build"], launches["build"] = \
+            _catchup_build(tmp)
+        b = res["build"]
+        print(f"[catchup] build: {b['signatures']} payments signed in "
+              f"{b['sign_s']:.3f} s on {b['sign_workers']} processes; "
+              f"genesis ({b['accounts']} accounts) {b['genesis_s']:.3f} s; "
+              f"ledgers 3-{CATCHUP_LAST} in {b['build_s']:.3f} s (closes "
+              f"{b['close_s']:.3f} s, nomination {b['nominate_s']:.3f} s); "
+              f"protocol {b['protocol']}, maxTxSetSize "
+              f"{b['max_tx_set_size']}, nothing excluded; archive "
+              f"{b['archive_bytes']} B in {b['archive_files']} files; "
+              f"ledger {CATCHUP_LAST} the reference's; launches "
+              f"{launches['build']}")
+        signer_table_cache.configure(enabled=False)
+        try:
+            cold, flushed = [], []
+            for i in range(CATCHUP_COLD_PASSES):
+                memory_lm, r = _catchup_pass(
+                    archive, "RECENT", CATCHUP_COUNT,
+                    record=flushed if i == 0 else None)
+                _catchup_gate(r, "a", one)
+                check(r["prefetch_misses"] == CATCHUP_SIGS,
+                      f"catchup (a): the prefetch missed "
+                      f"{r['prefetch_misses']} of {CATCHUP_SIGS}")
+                if i == 0:
+                    check(len(flushed[0]) == CATCHUP_SIGS,
+                          f"catchup (a): the first flush held "
+                          f"{len(flushed[0])} triples")
+                    res["sample"], res["sample_s"] = _oracle_sample(
+                        flushed[0])
+                cold.append(r)
+            res["cold"] = cold
+            launches["cold"] = _sum_counts(cold)
+            signer_table_cache._reset_for_testing()
+            signer_table_cache.configure(enabled=True)
+            res["tables"] = _build_tables(flushed[0])
+            del flushed
+            hot = []
+            for _ in range(CATCHUP_HOT_PASSES):
+                _lm, r = _catchup_pass(archive, "RECENT", CATCHUP_COUNT)
+                _catchup_gate(r, "b", {"verify_cold": 0, "verify_hot": 1,
+                                       "sha256": 1})
+                hot.append(r)
+            res["hot"] = hot
+            launches["hot"] = _sum_counts(hot)
+        finally:
+            signer_table_cache._reset_for_testing()
+        catchup.SKIP_KNOWN_RESULTS = True
+        try:
+            _lm, r = _catchup_pass(archive, "RECENT", CATCHUP_COUNT)
+        finally:
+            catchup.SKIP_KNOWN_RESULTS = False
+        _catchup_gate(r, "c", {"verify_cold": 0, "verify_hot": 0,
+                               "sha256": 1 + CATCHUP_REPLAYED})
+        res["skip"], launches["skip"] = r, r["launches"]
+        _lm, r = _catchup_pass(archive, "MINIMAL")
+        _catchup_gate(r, "d", {"verify_cold": 0, "verify_hot": 0,
+                               "sha256": 1})
+        check(r["replayed"] == 0, f"catchup (d): {r['replayed']} replayed")
+        res["minimal"], launches["minimal"] = r, r["launches"]
+        res["persist"] = _persistence_pass(archive, tmp, envs, memory_lm)
+        launches["persist"] = res["persist"]["launches"]
+        launches["next"] = res["persist"]["launches_next"]
+    check_dispatch_clean([default_verifier(), default_hasher()], "catchup")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    _pass_line("(a) RECENT cold", cold)
+    print(f"[catchup] (a) the first pass flushed {CATCHUP_SIGS} triples in "
+          f"one batch_verify_into_cache call; the oracle agrees with the "
+          f"verify cache on a sample of {res['sample']} "
+          f"({res['sample_s']:.3f} s); no miss in the closes")
+    print(f"[catchup] (b) the 256 signer tables built by one "
+          f"batch_verify_into_cache of (a)'s flushed triples (what an "
+          f"untimed pass's prefetch does): {res['tables']['seconds']:.3f} "
+          f"s, launches {res['tables']['launches']}")
+    _pass_line("(b) RECENT hot", hot)
+    _pass_line("(c) SKIP_KNOWN_RESULTS", [res["skip"]])
+    _pass_line("(d) MINIMAL", [res["minimal"]])
+    e = res["persist"]
+    print(f"[catchup] (e) persistence: (a)'s catchup with every close saved,"
+          f" wall {e['wall_s']:.3f} s, close p50 {e['close_p50_ms']:.3f} ms, "
+          f"save p50 {e['save_p50_ms']:.3f} ms, p90 {e['save_p90_ms']:.3f} "
+          f"ms, {e['saved_bytes']} B on disk; restores: " + "; ".join(
+              f"cutoff {v['cutoff_bytes']} B: restore {v['restore_s']:.3f} "
+              f"s, ledger 128 close {v['close_128_ms']:.3f} ms"
+              for v in e["restored"].values()) +
+          f"; in memory ledger 128 close {e['memory_close_128_ms']:.3f} ms; "
+          f"every ledger 128 the reference's; launches: the catchup "
+          f"{e['launches']}, the three ledger 128 tx sets and closes "
+          f"{e['launches_next']}")
+    print(f"[catchup] phase {res['seconds']:.1f} s; card {info['smi']}")
+    return res, launches
+
+
+def _sum_counts(runs):
+    return {k: sum(r["launches"][k] for r in runs)
+            for k in runs[0]["launches"]}
+
+
 def phase_faults(v, items, want):
     """The reference's device-domain scenarios on the SPLIT-index
     verifier, cache off: fail-device 1, probation healing, corrupt-device
@@ -4281,6 +4847,19 @@ def kernel_entry(name, source, replaces, jax_function, launches,
         "card": card, **extra}
 
 
+def _chain_counts(launches, kernel):
+    """Phase 23's counts of one kernel for the kernels line: (a)'s cold
+    passes, (b)'s hot ones, the build apart, (c), (d), (e)'s catchup and
+    (e)'s three ledger-128 tx sets and closes."""
+    names = {"cold": "launches_catchup", "hot": "launches_catchup_hot",
+             "build": "launches_catchup_build",
+             "skip": "launches_catchup_skip",
+             "minimal": "launches_catchup_minimal",
+             "persist": "launches_catchup_persist",
+             "next": "launches_catchup_next"}
+    return {names[k]: v[kernel] for k, v in launches.items()}
+
+
 def main() -> int:
     info = phase_device()
     dev = resolve_device(None)
@@ -4347,6 +4926,7 @@ def main() -> int:
     node_txset, txset_launches = phase_node_txset(info, node_traffic)
     node_close, close_launches = phase_node_close(info, node_traffic)
     del node_traffic
+    chain, chain_launches = phase_catchup_chain(info)
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
@@ -4371,6 +4951,7 @@ def main() -> int:
                          "verify_cold"],
                      launches_close=close_launches["cold"]["verify_cold"],
                      launches_close_hot=close_launches["hot"]["verify_cold"],
+                     **_chain_counts(chain_launches, "verify_cold"),
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -4383,6 +4964,7 @@ def main() -> int:
                      launches_node=node_launches["hot"]["verify_hot"],
                      launches_txset=txset_launches["hot"]["verify_hot"],
                      launches_close=close_launches["hot"]["verify_hot"],
+                     **_chain_counts(chain_launches, "verify_hot"),
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -4395,6 +4977,7 @@ def main() -> int:
                      launches_txset_hot=txset_launches["hot"]["sha256"],
                      launches_close=close_launches["cold"]["sha256"],
                      launches_close_hot=close_launches["hot"]["sha256"],
+                     **_chain_counts(chain_launches, "sha256"),
                      **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
@@ -4427,7 +5010,7 @@ def main() -> int:
         "transfer_cost": transfer_cost,
         "deadline": deadline, "probe": probe, "service": service,
         "fleet": fleet_res, "node": node, "node_txset": node_txset,
-        "node_close": node_close,
+        "node_close": node_close, "catchup_chain": chain,
         "fault_domains": fault_domains,
         "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))

@@ -37,7 +37,18 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
   header the set's transactions validate against;
 * :func:`node_close_ledger` — that root plus the entries that let every
   operation of such a set succeed at apply: the payments' destinations,
-  the offers' issuers and the sellers' trustlines.
+  the offers' issuers and the sellers' trustlines;
+* :func:`catchup_plan` — the payments of a chain for catchup: each of
+  ``senders`` single-key accounts pays one of as many destinations in
+  every full ledger, amounts and destinations drawn from the generator;
+* :func:`catchup_root` — the chain's genesis: those accounts and two
+  persistent contract-data entries whose time to live has run out, at
+  the protocol before state archival;
+* :func:`catchup_upgrades` — ledger 3's upgrades: state archival's
+  protocol and ``CATCHUP_MAX_TX_SET_SIZE``;
+* :func:`catchup_envelopes` — the plan's payments of some ledgers as
+  signed ``TransactionEnvelope`` XDR blobs, signed on a process pool
+  when asked.
 """
 
 from __future__ import annotations
@@ -64,7 +75,10 @@ __all__ = ["keypair", "valid_items", "edge_corpus", "matching_rows",
            "random_rows", "hot_matching_rows", "r16_matching_rows",
            "r16_overflow_rows", "R16_OVERFLOW", "NODE_NETWORK_ID",
            "node_txset", "collect_candidates", "check_transaction",
-           "node_ledger", "node_close_ledger", "NODE_MAX_TX_SET_SIZE"]
+           "node_ledger", "node_close_ledger", "NODE_MAX_TX_SET_SIZE",
+           "catchup_plan", "catchup_root", "catchup_upgrades",
+           "catchup_close_time", "catchup_envelopes",
+           "CATCHUP_MAX_TX_SET_SIZE"]
 
 # The least scalar whose signed radix-16 top digit exceeds the 8-entry
 # table: 0x8777...78 (an 8, 62 sevens, an 8). Digits in [-8, 8) below
@@ -613,3 +627,155 @@ def node_close_ledger(accounts, envelopes,
                 seller.data.value.numSubEntries += 1
                 store.put(key_bytes(entry_to_key(seller)), seller)
     return root
+
+
+# ---------------- a chain for catchup ----------------
+
+CATCHUP_BALANCE = 1000 * 10_000_000   # 1,000 XLM an account
+CATCHUP_EXPIRED_TAGS = (b"\x51", b"\x52")
+# ledger 3's maxTxSetSize: room for a full ledger of 256 payments, so
+# that nomination trims nothing
+CATCHUP_MAX_TX_SET_SIZE = 1000
+
+
+def catchup_plan(rng: np.random.Generator, senders: int = 256,
+                 first_full: int = 64, last: int = 127,
+                 extra: int = 1) -> dict:
+    """The traffic of a chain from genesis (ledger 2) to ``last``, as
+    plain data: ledger 3 carries :func:`catchup_upgrades`, ledgers 4 to
+    ``first_full - 1`` are empty, and every ledger from ``first_full``
+    to ``last + extra`` holds one payment from each sender, ``(sender,
+    destination, sequence number, stroops)``, the k-th of a sender's
+    payments at sequence number ``2^32 + k + 1``. Each full ledger draws
+    a permutation of the destinations and the amounts (1 to 10^7
+    stroops). The ledgers past ``last`` are closed after a catchup, not
+    published."""
+    names = [f"catchup-sender-{i}" for i in range(senders)]
+    dests = [f"catchup-dest-{i}" for i in range(senders)]
+    payments = {}
+    for k, ledger in enumerate(range(first_full, last + extra + 1)):
+        order = rng.permutation(senders)
+        amounts = rng.integers(1, 10**7, senders, endpoint=True)
+        payments[ledger] = [(names[i], dests[int(order[i])],
+                             (1 << 32) + k + 1, int(amounts[i]))
+                            for i in range(senders)]
+    return {"senders": names, "destinations": dests, "payments": payments,
+            "last": last}
+
+
+def catchup_close_time(ledger: int) -> int:
+    """Five seconds a ledger from genesis' 1,000."""
+    return 1000 + 5 * (ledger - 2)
+
+
+def _expired_entries():
+    """Two persistent contract-data entries and their TTL entries, live
+    until ledger 2: once ledger 3 upgrades to state archival, the
+    eviction scan moves them into the hot archive."""
+    from stellar_tpu_torch.soroban.host import (contract_data_key,
+                                                scaddress_contract,
+                                                ttl_key_for)
+    from stellar_tpu_torch.xdr.contract import (ContractDataDurability,
+                                                ContractDataEntry, SCVal,
+                                                SCValType)
+    out = []
+    for tag in CATCHUP_EXPIRED_TAGS:
+        addr = scaddress_contract(tag * 32)
+        key = SCVal.make(SCValType.SCV_SYMBOL, b"k")
+        data = ContractDataEntry(
+            ext=xt.ExtensionPoint.make(0), contract=addr, key=key,
+            durability=ContractDataDurability.PERSISTENT,
+            val=SCVal.make(SCValType.SCV_U32, tag[0]))
+        lk = contract_data_key(addr, key, ContractDataDurability.PERSISTENT)
+        ttl = xt.TTLEntry(keyHash=ttl_key_for(lk).value.keyHash,
+                          liveUntilLedgerSeq=2)
+        for entry_type, body in ((xt.LedgerEntryType.CONTRACT_DATA, data),
+                                 (xt.LedgerEntryType.TTL, ttl)):
+            out.append(xt.LedgerEntry(
+                lastModifiedLedgerSeq=2,
+                data=xt.LedgerEntry._types[1].make(entry_type, body),
+                ext=xt.LedgerEntry._types[2].make(0)))
+    return out
+
+
+def catchup_root(plan: dict) -> LedgerTxnRoot:
+    """The chain's genesis, ledger 2 at close time 1,000: every sender
+    and destination a single-key account of ``CATCHUP_BALANCE`` at
+    sequence number 2^32, and :func:`_expired_entries`, under the
+    protocol before state archival's."""
+    from stellar_tpu_torch.bucket.hot_archive import (
+        STATE_ARCHIVAL_PROTOCOL_VERSION)
+    from stellar_tpu_torch.tx.tx_test_utils import (keypair,
+                                                    seed_root_with_accounts)
+    root = seed_root_with_accounts(
+        [(keypair(n), CATCHUP_BALANCE)
+         for n in plan["senders"] + plan["destinations"]])
+    for entry in _expired_entries():
+        root.store.put(key_bytes(entry_to_key(entry)), entry)
+    header = copy_header(root.header())
+    header.ledgerVersion = STATE_ARCHIVAL_PROTOCOL_VERSION - 1
+    root.set_header(header)
+    return root
+
+
+def catchup_upgrades() -> list:
+    """Ledger 3's upgrades as XDR blobs: state archival's protocol, then
+    ``maxTxSetSize`` raised to ``CATCHUP_MAX_TX_SET_SIZE`` (the genesis
+    header allows 100 operations, and nomination would drop the rest)."""
+    from stellar_tpu_torch.bucket.hot_archive import (
+        STATE_ARCHIVAL_PROTOCOL_VERSION)
+    from stellar_tpu_torch.xdr.ledger import LedgerUpgrade, LedgerUpgradeType
+    return [to_bytes(LedgerUpgrade, LedgerUpgrade.make(arm, value))
+            for arm, value in (
+                (LedgerUpgradeType.LEDGER_UPGRADE_VERSION,
+                 STATE_ARCHIVAL_PROTOCOL_VERSION),
+                (LedgerUpgradeType.LEDGER_UPGRADE_MAX_TX_SET_SIZE,
+                 CATCHUP_MAX_TX_SET_SIZE))]
+
+
+_KEYPAIRS: dict = {}
+
+
+def _named(name: str) -> SecretKey:
+    from stellar_tpu_torch.tx.tx_test_utils import keypair
+    if name not in _KEYPAIRS:
+        _KEYPAIRS[name] = keypair(name)
+    return _KEYPAIRS[name]
+
+
+def _sign_payments(job) -> list:
+    """One chunk of payments, signed: ``job`` is ``(network id, rows)``."""
+    from stellar_tpu_torch.tx.tx_test_utils import make_tx, payment_op
+    network_id, rows = job
+    return [to_bytes(xtx.TransactionEnvelope, make_tx(
+        _named(sender), seq, [payment_op(_named(dest), amount)],
+        network_id=network_id).envelope)
+        for sender, dest, seq, amount in rows]
+
+
+def catchup_envelopes(plan: dict, ledgers, network_id: bytes,
+                      workers: int = 1) -> dict:
+    """``{ledger: [envelope XDR, ...]}`` for the plan's payments of
+    ``ledgers`` (each payment signed by its sender), in sender order.
+    With ``workers`` above 1 the signing runs on that many spawned
+    processes; ed25519 signatures are deterministic, so the blobs do not
+    depend on it."""
+    rows = [(ledger, r) for ledger in ledgers
+            for r in plan["payments"].get(ledger, ())]
+    if workers <= 1:
+        signed = _sign_payments((network_id, [r for _l, r in rows]))
+    else:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        step = max(1, -(-len(rows) // (4 * workers)))
+        jobs = [(network_id, [r for _l, r in rows[i:i + step]])
+                for i in range(0, len(rows), step)]
+        with ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")
+        ) as pool:
+            signed = [e for chunk in pool.map(_sign_payments, jobs)
+                      for e in chunk]
+    out = {}
+    for (ledger, _r), env in zip(rows, signed):
+        out.setdefault(ledger, []).append(env)
+    return out

@@ -1,10 +1,11 @@
 """Helpers shared by the port's node-slice tests (``test_torch_ledger.py``,
 ``test_torch_tx_frame.py``, ``test_torch_tx_set.py``,
 ``test_torch_bucket.py``, ``test_torch_ledger_close.py``,
-``test_torch_txmeta.py``): the source
-comparison of a copied module with the reference's, and the carrying of
-XDR values and ledgers from the port to the reference through their
-bytes (objects never cross the two packages)."""
+``test_torch_txmeta.py``, ``test_torch_catchup.py``,
+``test_torch_persistence.py``): the source comparison of a copied module
+with the reference's, the carrying of XDR values and ledgers from the
+port to the reference through their bytes (objects never cross the two
+packages), and ``chip_smoke.py``'s pinned constants."""
 
 import ast
 from pathlib import Path
@@ -67,6 +68,21 @@ class _Normalize(ast.NodeTransformer):
         for alias in node.names:
             alias.name = self._rename(alias.name)
         return node
+
+
+def chip_smoke_constants():
+    """``chip_smoke.py``'s module-level literal constants, read with
+    ``ast`` (the script is not imported)."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                isinstance(node.targets[0], ast.Name):
+            try:
+                out[node.targets[0].id] = ast.literal_eval(node.value)
+            except ValueError:
+                pass
+    return out
 
 
 def normalized(path: Path) -> ast.Module:

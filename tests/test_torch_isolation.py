@@ -51,15 +51,22 @@ CLOSE_MODULES = (
     "bucket.bucket", "bucket.bucket_list", "bucket.eviction",
     "bucket.hot_archive", "ledger.ledger_manager")
 
+# catchup and the node's persistence: the work system, the history
+# archive, catchup, the database, the bucket files and BucketListDB
+CATCHUP_MODULES = (
+    "utils.scheduler", "utils.timer", "utils.status", "work", "work.work",
+    "process", "process.process_manager", "history",
+    "history.history_manager", "historywork", "catchup", "catchup.catchup",
+    "crypto.shorthash", "bucket.bucket_index", "bucket.bucket_list_db",
+    "bucket.bucket_manager", "database", "database.database")
+
 # modules the port names in a late import but lacks, each waiting for a
-# later slice (ROADMAP.md's known gaps): the Soroban host's wasm stack,
-# and the persistence of ``LedgerManager.from_persistence``
+# later slice (ROADMAP.md's known gaps): the Soroban host's wasm stack
 KNOWN_GAPS = (
     "stellar_tpu_torch.soroban.wasm", "stellar_tpu_torch.soroban.env",
     "stellar_tpu_torch.soroban.native_wasm",
     "stellar_tpu_torch.soroban.legacy_abi",
-    "stellar_tpu_torch.soroban.asset_contract",
-    "stellar_tpu_torch.bucket.bucket_list_db")
+    "stellar_tpu_torch.soroban.asset_contract")
 
 
 def test_forbidden_imports_absent():
@@ -83,7 +90,7 @@ def test_forbidden_imports_absent():
                    "tx/signature_utils", "tx/signature_checker"):
         assert os.path.join(ROOT, "stellar_tpu_torch",
                             f"{module}.py") in files
-    for module in NODE_MODULES + CLOSE_MODULES:
+    for module in NODE_MODULES + CLOSE_MODULES + CATCHUP_MODULES:
         assert _module_path("stellar_tpu_torch." + module) in files, module
     for path in files:
         with open(path) as f:
@@ -496,6 +503,121 @@ def _ref_node_close(seed) -> str:
         keys.set_verifier_backend(previous)
         keys.flush_verify_cache()
     return res.header_hash.hex()
+
+
+def test_node_catchup_with_jax_blocked(tmp_path):
+    """A fresh interpreter in which importing jax or stellar_tpu fails
+    imports every module of the catchup slice, builds a miniature of
+    ``chip_smoke.py`` phase 23's chain on the CPU (two senders, ledgers
+    64 to 127 of two payments each, over the oracle) into a
+    ``FileArchive``, catches a fresh node with ``NodePersistence`` up to
+    ledger 127 in ``RECENT`` mode (adopting checkpoint 63, replaying 64 to
+    127), restarts it with ``LedgerManager.from_persistence`` over a
+    ``BucketListStore`` at index cutoff 0 and closes ledger 128. Ledger
+    127's and ledger 128's header hashes equal the reference's chain,
+    built here."""
+    code = "\n".join([
+        "import sys, importlib, os",
+        "sys.modules['jax'] = None",
+        "sys.modules['stellar_tpu'] = None",
+        "import numpy as np",
+        f"for m in {CATCHUP_MODULES!r}:",
+        "    importlib.import_module('stellar_tpu_torch.' + m)",
+        "import stellar_tpu_torch.tx.ops",
+        "from stellar_tpu_torch.bucket import bucket_index",
+        "from stellar_tpu_torch.bucket.bucket_manager import BucketManager",
+        "from stellar_tpu_torch.catchup import catchup",
+        "from stellar_tpu_torch.crypto import batch_hasher, ed25519_ref, "
+        "keys, vectors",
+        "from stellar_tpu_torch.database import Database, NodePersistence",
+        "from stellar_tpu_torch.herder import tx_set as ts",
+        "from stellar_tpu_torch.history import history_manager as hmm",
+        "from stellar_tpu_torch.ledger import ledger_manager as lmm",
+        "from stellar_tpu_torch.tx.transaction_frame import "
+        "make_transaction_frame",
+        "from stellar_tpu_torch.utils.timer import VIRTUAL_TIME, "
+        "VirtualClock",
+        "from stellar_tpu_torch.work.work import WorkScheduler",
+        "from stellar_tpu_torch.xdr import tx as xtx",
+        "from stellar_tpu_torch.xdr.runtime import from_bytes",
+        "real = batch_hasher.hash_many",
+        "batch_hasher.hash_many = lambda b, device=None: real(b, "
+        "device='cpu')",
+        "keys.set_verifier_backend(ed25519_ref.verify)",
+        "nid = bytes(range(32))",
+        "plan = vectors.catchup_plan(np.random.default_rng(1717), "
+        "senders=2)",
+        "envs = vectors.catchup_envelopes(plan, range(64, 129), nid)",
+        "def close(lm, es, ups=()):",
+        "    frames = [make_transaction_frame(nid, from_bytes("
+        "xtx.TransactionEnvelope, e)) for e in es]",
+        "    txset, ex = ts.make_tx_set_from_transactions(frames, "
+        "lm.last_closed_header, lm.last_closed_hash)",
+        "    assert ex == []",
+        "    seq = lm.ledger_seq + 1",
+        "    res = lm.close_ledger(lmm.LedgerCloseData(seq, txset, "
+        "vectors.catchup_close_time(seq), upgrades=list(ups)))",
+        "    assert res.failed_count == 0 and res.applied_count == len(es)",
+        "    return res, txset",
+        "tmp = sys.argv[1]",
+        "archive = hmm.FileArchive(os.path.join(tmp, 'archive'))",
+        "hm = hmm.HistoryManager([archive], 'test-net')",
+        "lm = lmm.LedgerManager(nid, vectors.catchup_root(plan))",
+        "while lm.ledger_seq < 127:",
+        "    seq = lm.ledger_seq + 1",
+        "    res, txset = close(lm, envs.get(seq, []), "
+        "vectors.catchup_upgrades() if seq == 3 else ())",
+        "    hm.ledger_closed(res, txset, lm.bucket_list, "
+        "hot_archive=lm.hot_archive)",
+        "assert hm.published_checkpoints == [63, 127]",
+        "db = os.path.join(tmp, 'node.db')",
+        "buckets = os.path.join(tmp, 'buckets')",
+        "pers = NodePersistence(Database(db), BucketManager(buckets))",
+        "node = lmm.LedgerManager(nid, persistence=pers)",
+        "ws = WorkScheduler(VirtualClock(VIRTUAL_TIME))",
+        "work = catchup.CatchupWork(node, archive, "
+        "catchup.CatchupConfiguration(127, 'RECENT', count=63))",
+        "ws.schedule(work)",
+        "assert ws.run_until_done(600) and work.state == 'SUCCESS'",
+        "assert node.last_closed_hash == lm.last_closed_hash",
+        "pers.db.close()",
+        "bucket_index.INDEX_CUTOFF_BYTES = 0",
+        "pers = NodePersistence(Database(db), BucketManager(buckets))",
+        "back = lmm.LedgerManager.from_persistence(nid, pers)",
+        "assert back.root.store.is_bucket_backed",
+        "assert back.last_closed_hash == lm.last_closed_hash",
+        "assert back.bucket_list.hash() == lm.bucket_list.hash()",
+        "res, _set = close(back, envs[128])",
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == "
+        "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
+        "sys.modules if sys.modules[m] is not None)",
+        "print(lm.last_closed_hash.hex(), res.header_hash.hex())",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == _ref_catchup_chain(
+        tmp_path / "ref")
+
+
+def _ref_catchup_chain(path) -> str:
+    """The reference's chain of the miniature above: ledger 127's and
+    ledger 128's header hashes, as hex."""
+    from tests._torch_chain import REF
+    previous = REF.keys._backend
+    REF.keys.set_verifier_backend(REF.ref.verify)
+    try:
+        plan = vectors.catchup_plan(np.random.default_rng(1717), senders=2)
+        envs = REF.envelopes(plan, range(64, 129))
+        lm, _hm = REF.build(plan, envs, str(path))
+        lcl = lm.last_closed_hash
+        res, _set = REF.close(lm, envs[128])
+    finally:
+        REF.keys.set_verifier_backend(previous)
+        REF.keys.flush_verify_cache()
+    return f"{lcl.hex()} {res.header_hash.hex()}"
 
 
 def _package_names(path):

@@ -21,7 +21,6 @@ Both packages verify through their pure-Python oracles unless a case
 installs another backend, so no JAX program is compiled.
 """
 
-import ast
 import dataclasses
 import hashlib
 
@@ -72,7 +71,8 @@ from stellar_tpu_torch.xdr import runtime as prt
 from stellar_tpu_torch.xdr import tx as ptx
 from stellar_tpu_torch.xdr import types as ptypes
 
-from tests._torch_port import ROOT, check_copy, ref_root, to_ref
+from tests._torch_port import (check_copy, chip_smoke_constants,
+                                ref_root, to_ref)
 
 MODULES = ["ledger/ledger_manager.py", "soroban/__init__.py",
            "soroban/host.py", "herder/upgrades.py", "invariant/__init__.py",
@@ -82,21 +82,6 @@ XLM = 10_000_000
 # test_torch_signature_checker.py's miniature of phase 20
 SMALL = dict(single=5, multisig=22, two_op=8, special=5, corrupt=0.06,
              short_multisig=2)
-
-
-def chip_smoke_constants():
-    """``chip_smoke.py``'s module-level literal constants, read with
-    ``ast`` (the script is not imported)."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    out = {}
-    for node in tree.body:
-        if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
-                isinstance(node.targets[0], ast.Name):
-            try:
-                out[node.targets[0].id] = ast.literal_eval(node.value)
-            except ValueError:
-                pass
-    return out
 
 
 @pytest.mark.parametrize("rel", MODULES)
