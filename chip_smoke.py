@@ -337,7 +337,58 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    and ``bucket.addBatch`` zones and the fee and apply phases, the
    engines' share of the wall; the build's signing, closes, nomination
    and archive bytes; (e)'s save a close, restores and ledger 128 closes;
-24. fault domains, last — on the 4-index verifier: ``fail-device`` on
+24. the node — ``BASELINE.json`` config 4, "SCP quorum simulation
+   (src/simulation): 16 validators x 5 ballot rounds envelope-sig
+   storm", through the port's own entry points: ``Simulation.add_node``
+   with a ``Config`` a node (``QUORUM_INTERSECTION_CHECKER`` off, as the
+   simulation's default), ``add_connection`` (the ``Topologies.core(16)``
+   mesh, threshold 11, keys ``SecretKey.from_seed_str("sim-node-i")``),
+   ``start_all_nodes`` and ``crank_until_ledger`` under ``VIRTUAL_TIME``;
+   the handshakes on the pure-Python X25519 ladder (the machine has no
+   ``cryptography``). (a) ``VERIFY_SERVICE_ENABLED``: SCP envelopes ride
+   the resident service's ``scp`` lane and peer auth certs its ``auth``
+   lane; cranked until every node holds 15 authenticated peers, then 5
+   ledgers. (d) on (a)'s network: node 1's last statement re-signed with
+   one signature byte flipped is rejected by node 0's
+   ``herder.recv_scp_envelope`` through the scp lane, and node 1's auth
+   cert with a flipped byte is refused by ``verify_remote_cert`` through
+   the auth lane, both verdicts the oracle's. (b) the same network with
+   ``WORKER_THREADS`` 2 and no service: ``Application`` installs
+   ``default_verifier()`` behind a ``TrickleBatcher`` (1 ms window), so
+   every ``verify_sig`` goes to the card. (c) a flood over core4 with
+   the service on, ``MAX_TX_SET_SIZE`` 1,000 and
+   ``BACKGROUND_BUCKET_MERGES`` off (the worker pool's work inline, so
+   the ledgers do not follow the card's timing): 1,000 funded single-key
+   sources (``vectors.flood_accounts``), their payments signed in
+   process (``vectors.flood_envelopes``); before each of 10 ledgers node
+   1 relays 100 of them to node 0 as overlay TRANSACTION messages, and
+   node 0's own pre-verify site (``_preverify_into_cache``) puts each on
+   the ``bulk`` lane before admitting it; they flood on by advert and
+   demand (the other nodes' pre-verify finds them in the verify cache,
+   which the nodes of one process share), are nominated, validated
+   (``check_valid``, whose prefetch finds them cached) and closed;
+   cranked until every payment has applied on every node. Gates: every
+   node in consensus; ledger 6's header hash ``NET_LEDGER_HASH`` and the
+   statements' digest ``NET_STATEMENT_DIGEST`` in (a) and (b), ledger 12
+   ``FLOOD_LEDGER_HASH`` and the destination's ``FLOOD_DEST_BALANCE`` on
+   every node in (c) (all the reference's runs of the same shapes); the
+   host oracle decides no signature while an arm runs (``keys._ref``
+   counted) and every triple the card decided is decided again by the
+   oracle after the arm, with the same verdict; in (c) every bulk row
+   put there by node 0's pre-verify site, one a payment; no
+   ``service_verified`` fallback (in (b), where no service runs, only "absent" ones), nothing
+   shed, rejected or failed; K1 + K2 launched in (a), (b) and (c); the
+   service, the trickle backend and the worker pool stopped before the
+   next arm; the dispatch clean. Printed: each arm's wall, rounds a
+   second, statements and distinct triples, each lane's round trips as
+   the crank waits on them (p50, p99, seconds blocked: the verify
+   path's share of the wall), the kernels' device time (CUDA events
+   around each launch) and its share of the wall, the service's
+   submissions and dispatches, the trickle's dispatches, the engine's
+   spans, the handshakes' wall, the
+   flood's messages (FLOOD_ADVERT, FLOOD_DEMAND, TRANSACTION) and its
+   closes' p50 and p90;
+25. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -361,10 +412,14 @@ its cold replayed closes and K2 and K3 over its hot ones
 pass of phase 23 (``launches_catchup`` over (a), ``launches_catchup_hot``
 over (b), ``launches_catchup_build``, ``_skip``, ``_minimal``,
 ``_persist`` and ``_next`` for the build, (c), (d), (e)'s catchup and
-(e)'s three ledger-128 tx sets and closes). After every main-path
+(e)'s three ledger-128 tx sets and closes), K1, K2 and K3 over each arm
+of phase 24 (``launches_net_service`` (a), ``_trickle`` (b), ``_flood``
+(c), ``_tamper`` (d); each kernel's device time in (a), (b) and (c),
+CUDA events around its launches, as ``net_device_ms``). After every
+main-path
 phase the dispatch must be clean: no device fault (no retry, every
 breaker closed and never opened), no audit mismatch, no conviction; only
-phases 16, 18 (c) and (e), and 24 expect otherwise. The
+phases 16, 18 (c) and (e), and 25 expect otherwise. The
 engine has no host failover, so no row of a card is ever served by the
 host. Before the last line, one ``{"kernels": [...]}`` line holds every
 kernel's launches, times, bound and build; the last line is ``{"ok":
@@ -377,6 +432,7 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
+import copy
 import hashlib
 import inspect
 import json
@@ -411,6 +467,7 @@ try:
         BatchVerifier, Ed25519HotWorkload, Ed25519Workload, TrickleBatcher,
         default_verifier)
     from stellar_tpu_torch.database import Database, NodePersistence
+    from stellar_tpu_torch.herder import herder as herder_mod
     from stellar_tpu_torch.herder import tx_set
     from stellar_tpu_torch.history import history_manager
     from stellar_tpu_torch.invariant.invariants import InvariantManager
@@ -419,12 +476,16 @@ try:
     from stellar_tpu_torch.ops import _build
     from stellar_tpu_torch.ops import sha256 as sk
     from stellar_tpu_torch.ops import verify as vk
+    from stellar_tpu_torch.overlay import overlay_manager
     from stellar_tpu_torch.parallel import batch_engine, mesh, residency
     from stellar_tpu_torch.parallel.batch_engine import DEFAULT_BUCKET_SIZES
     from stellar_tpu_torch.parallel.signer_tables import (
         TABLE_ENTRIES, build_signer_table, signer_table_cache)
+    from stellar_tpu_torch.scp.scp import EnvelopeState
+    from stellar_tpu_torch.simulation.simulation import Simulation
     from stellar_tpu_torch.utils import (faults, journal, metrics, native,
                                          resilience, tracing)
+    from stellar_tpu_torch.utils import workers as bg_workers
     from stellar_tpu_torch.utils.device import resolve_device
     from stellar_tpu_torch.utils.metrics import registry
     from stellar_tpu_torch.utils.timeline import pipeline_timeline
@@ -439,6 +500,8 @@ try:
     from stellar_tpu_torch.xdr import results as xresults
     from stellar_tpu_torch.xdr import tx as xtx
     from stellar_tpu_torch.xdr import types as xt
+    from stellar_tpu_torch.xdr.overlay import MessageType, StellarMessage
+    from stellar_tpu_torch.xdr.scp import SCPEnvelope
     from stellar_tpu_torch.xdr.runtime import from_bytes, to_bytes
 except ImportError as e:  # run outside the repository
     _IMPORT_ERROR = e
@@ -555,7 +618,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 24's per-device backoff: far longer than a TxSet call (tens of
+# phase 25's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -666,6 +729,31 @@ CATCHUP_SIGN_WORKERS = 8
 CATCHUP_PASSPHRASE = "test-net"
 CATCHUP_LCL_HASH = "3c06080666c149073e10014aa0b2a79c6731179ea521963bbad9696903394a16"
 CATCHUP_NEXT_HASH = "7fd136b076d648234b66c52a8ddae47e94139aebc95a1f797b705282f5b6b887"
+# Phase 24: the node. (a) and (b) are BASELINE.json config 4, "SCP quorum
+# simulation (src/simulation): 16 validators x 5 ballot rounds
+# envelope-sig storm": Topologies.core(16) (threshold 11) from
+# SecretKey.from_seed_str("sim-node-i"), 5 ledgers after the mesh
+# authenticated. (c) a flood over core4: 100 payments injected at node 0
+# before each of 10 ledgers, 1,000 funded sources. The pins are the
+# reference's runs of the same shapes on the CPU (tests/test_torch_scp.py
+# and tests/test_torch_overlay.py recompute them in tests marked slow):
+# ledger 6's header hash and the SHA-256 over the sorted XDR bytes of
+# every distinct statement in the nodes' statements_history; the flood's
+# last ledger and its header hash.
+NET_VALIDATORS = 16
+NET_ROUNDS = 5
+NET_AUTH_TIMEOUT_S = 60
+NET_CRANK_TIMEOUT_S = 600
+NET_LEDGER_HASH = "1c98ece7b79c54255362a7069356b18a67b2f22628b25bd71af30e1379aa6dac"
+NET_STATEMENT_DIGEST = "464002bb39b237f951a5f388ded8d2aa7087c4b55d2ec3c1dff270b4f5ce2b69"
+NET_TRICKLE_WORKERS = 2
+FLOOD_VALIDATORS = 4
+FLOOD_SOURCES = 1000
+FLOOD_PER_LEDGER = 100
+FLOOD_MAX_TX_SET_SIZE = 1000
+FLOOD_LAST_LEDGER = 12
+FLOOD_LEDGER_HASH = "355ee4a1d4d34c9f3c3f147d52807747c2a077031cd5c74f3794c67de274e3ef"
+FLOOD_DEST_BALANCE = 20_000_000_000   # 2,000 XLM: 1,000 + 1,000 payments of 1
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -4728,6 +4816,544 @@ def phase_catchup_chain(info):
     return res, launches
 
 
+class _CountingOracle:
+    """The host oracle as ``keys`` reaches it (``keys._ref``): every
+    other name passes through, and each ``verify`` it decides is
+    counted."""
+
+    def __init__(self, module):
+        self._module, self.calls = module, 0
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+    def verify(self, *args):
+        self.calls += 1
+        return self._module.verify(*args)
+
+
+def _fallbacks():
+    """``service_verified``'s fallbacks so far, by lane and reason."""
+    prefix = "crypto.verify.service.adopter_fallback."
+    return {name[len(prefix):]: m["count"]
+            for name, m in registry.find(prefix).items()}
+
+
+def _process_state():
+    """The process-wide state an arm may start: the service, the verify
+    backend, the worker pool, the pool's work run inline."""
+    return {"service": verify_service.running_service() is not None,
+            "backend": keys._backend is not None,
+            "worker_pool": bg_workers._pool is not None,
+            "workers_inline": not bg_workers.background_enabled()}
+
+
+def _stop_process_state():
+    """Stop the service (and drop it, so the next arm starts a fresh
+    one), uninstall the verify backend, shut the worker pool and put its
+    work back in the background."""
+    svc = verify_service.running_service()
+    if svc is not None:
+        svc.stop(drain=True, timeout=30)
+    verify_service._service = None
+    keys.set_verifier_backend(None)
+    bg_workers.shutdown()
+    bg_workers.set_background(True)
+    check(not any(_process_state().values()),
+          f"node: process-wide state left running {_process_state()}")
+
+
+def _network(n, accounts=None, **knobs):
+    """``vectors.core_network(n)`` with ``knobs`` in every node's
+    ``Config``; each node's closes are timed and their header hashes kept
+    in ``app.closes``."""
+    sim = vectors.core_network(n, accounts=accounts, **knobs)
+    for app in sim.nodes.values():
+        app.closes, app.close_s = {}, []
+
+        def close(lcd, _app=app, _close=app.lm.close_ledger):
+            t = time.perf_counter()
+            res = _close(lcd)
+            _app.close_s.append(time.perf_counter() - t)
+            _app.closes[lcd.ledger_seq] = res.header_hash.hex()
+            return res
+        app.lm.close_ledger = close
+    return sim
+
+
+class _ArmRecord:
+    """What one arm's verify paths did: each round trip to the card
+    (``VerifyService.verify`` by lane, ``TrickleBatcher.verify_sig``)
+    timed, the rows the flood's pre-verify site
+    (``overlay_manager._preverify_into_cache``) put on a lane, every
+    triple that reached a verifier kept, the host oracle's decisions
+    counted (``keys._ref`` wrapped), and CUDA events around every kernel
+    launch (``_build.launch``): the kernels' own device time."""
+
+    def __init__(self):
+        self.trips = collections.defaultdict(list)    # lane -> seconds
+        self.items = collections.defaultdict(int)     # lane -> rows
+        self.site_rows = collections.defaultdict(int)  # lane -> rows
+        self.site_calls = 0
+        self.triples = {}                              # triple -> verdict
+        self.oracle = _CountingOracle(keys._ref)
+        self.launched = collections.defaultdict(list)  # kernel -> events
+        self._window = {}                              # lane -> first trip
+        self._site = threading.local()
+        self._lock = threading.Lock()
+
+    def _service(self, fn):
+        def verify(svc, items, lane="bulk", **kwargs):
+            t = time.perf_counter()
+            out = fn(svc, items, lane=lane, **kwargs)
+            dt = time.perf_counter() - t
+            with self._lock:
+                self.trips[lane].append(dt)
+                self.items[lane] += len(items)
+                if getattr(self._site, "active", False):
+                    self.site_rows[lane] += len(items)
+                self.triples.update(zip(map(tuple, items), map(bool, out)))
+            return out
+        return verify
+
+    def _trickle(self, fn):
+        def verify_sig(batcher, pk, msg, sig):
+            t = time.perf_counter()
+            ok = fn(batcher, pk, msg, sig)
+            dt = time.perf_counter() - t
+            with self._lock:
+                self.trips["trickle"].append(dt)
+                self.items["trickle"] += 1
+                self.triples[(bytes(pk), bytes(msg), bytes(sig))] = bool(ok)
+            return ok
+        return verify_sig
+
+    def _preverify(self, fn):
+        def preverify(items):
+            self._site.active = True
+            try:
+                return fn(items)
+            finally:
+                self._site.active = False
+                with self._lock:
+                    self.site_calls += 1
+        return preverify
+
+    def _launch(self, fn):
+        def launch(name, inputs, out, n, *ints):
+            stream = torch.cuda.current_stream(out.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            fn(name, inputs, out, n, *ints)
+            end.record(stream)
+            with self._lock:
+                self.launched[name].append((start, end, n))
+        return launch
+
+    def wrapped(self):
+        return _Wrapped(
+            (verify_service.VerifyService, "verify", self._service),
+            (TrickleBatcher, "verify_sig", self._trickle),
+            (overlay_manager, "_preverify_into_cache", self._preverify),
+            (_build, "launch", self._launch),
+            (keys, "_ref", lambda module: self.oracle))
+
+    def figures(self):
+        out = {}
+        for lane, trips in self.trips.items():
+            ms = np.array(trips) * 1e3
+            out[lane] = {"round_trips": len(trips),
+                         "rows": self.items[lane],
+                         "total_s": float(ms.sum() / 1e3),
+                         "p50_ms": float(np.percentile(ms, 50)),
+                         "p99_ms": float(np.percentile(ms, 99))}
+        return out
+
+    def start_window(self):
+        """The arm's timed window starts: the kernels' events and the
+        round trips that count as the crank's blocked time are those
+        from now on."""
+        with self._lock:
+            self.launched.clear()
+            self._window = {ln: len(t) for ln, t in self.trips.items()}
+
+    def blocked_s(self):
+        """Seconds of round trips since ``start_window``."""
+        with self._lock:
+            return float(sum(sum(t[self._window.get(ln, 0):])
+                             for ln, t in self.trips.items()))
+
+    def kernel_time(self, wall_s):
+        """Each kernel's launches, rows and summed device ms (CUDA events
+        around its launches), and all kernels' share of ``wall_s``."""
+        torch.cuda.synchronize()
+        with self._lock:
+            launched = {k: list(v) for k, v in self.launched.items()}
+        out = {name: {"launches": len(ev),
+                      "rows": sum(n for _s, _e, n in ev),
+                      "ms": sum(s.elapsed_time(e) for s, e, _n in ev)}
+               for name, ev in sorted(launched.items())}
+        total = sum(k["ms"] for k in out.values())
+        return {"by_kernel": out, "ms": total,
+                "share_of_wall": total / 1e3 / wall_s}
+
+    def oracle_recheck(self):
+        """Every triple that reached the card, decided again by the host
+        oracle (``ref.verify`` itself, outside the count): the
+        disagreements and the seconds it took."""
+        t = time.perf_counter()
+        bad = [t_ for t_, ok in self.triples.items() if ref.verify(*t_) != ok]
+        return bad, time.perf_counter() - t
+
+
+def _arm_gates(label, rec, fallback0, svc_snap=None):
+    """The gates every arm on the card shares: the host oracle decided
+    no signature; with the service (its snapshot ``svc_snap``) no
+    ``service_verified`` fallback and nothing shed, rejected or failed,
+    without it only the "absent" fallbacks; the oracle agrees with every
+    verdict the card gave."""
+    check(rec.oracle.calls == 0, f"node ({label}): the host oracle decided "
+          f"{rec.oracle.calls} signatures")
+    moved = {k: v - fallback0.get(k, 0) for k, v in _fallbacks().items()
+             if v != fallback0.get(k, 0)}
+    if svc_snap is None:
+        # no service in this arm: every miss asks the absent service
+        # first, then verify_sig (the trickle, on the card)
+        check(all(k.endswith(".absent") for k in moved),
+              f"node ({label}): service fallbacks {moved}")
+    else:
+        check(not moved, f"node ({label}): service fallbacks {moved}")
+        tot = svc_snap["totals"]
+        check(tot["shed"] == tot["rejected"] == tot["failed"] == 0 and
+              svc_snap["conservation_gap"] == 0,
+              f"node ({label}): service totals {tot}, gap "
+              f"{svc_snap['conservation_gap']}")
+    bad, recheck_s = rec.oracle_recheck()
+    check(not bad and rec.triples, f"node ({label}): the oracle disagrees "
+          f"with {len(bad)} of {len(rec.triples)} verdicts")
+    return {"fallbacks": moved, "triples": len(rec.triples),
+            "oracle_recheck_s": recheck_s}
+
+
+def _engine_spans(before, after):
+    """The verify engine's time in an arm from ``tracing.span_totals()``
+    deltas: the service dispatcher's ``service.dispatch`` and
+    ``service.resolve`` spans, and the trickle's ``verify.blocking``
+    calls (ms)."""
+    return {name: _zone_ms(before, after, f"span.{name}")
+            for name in ("service.dispatch", "service.resolve",
+                         "verify.blocking")}
+
+
+def _consensus_arm(label, **knobs):
+    """(a) or (b): ``NET_VALIDATORS`` validators fully connected, cranked
+    until every node holds ``NET_VALIDATORS - 1`` authenticated peers,
+    then ``NET_ROUNDS`` ledgers. Returns the figures and the network."""
+    keys.flush_verify_cache()
+    signer_table_cache._reset_for_testing()
+    fallback0 = _fallbacks()
+    rec = _ArmRecord()
+    _zero_counts()
+    spans0 = tracing.span_totals()
+    with rec.wrapped():
+        t = time.perf_counter()
+        sim = _network(NET_VALIDATORS, **knobs)
+        apps = list(sim.nodes.values())
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sim.start_all_nodes()
+        check(sim.crank_until(lambda: all(
+            a.overlay.authenticated_count() >= NET_VALIDATORS - 1
+            for a in apps), NET_AUTH_TIMEOUT_S),
+            f"node ({label}): the mesh never authenticated")
+        auth_s = time.perf_counter() - t
+        rec.start_window()
+        start = apps[0].lm.ledger_seq
+        last = start + NET_ROUNDS
+        t = time.perf_counter()
+        check(sim.crank_until_ledger(last, NET_CRANK_TIMEOUT_S),
+              f"node ({label}): ledger {last} not reached")
+        wall_s = time.perf_counter() - t
+        blocked_s = rec.blocked_s()
+    launches = _counts()
+    spans = _engine_spans(spans0, tracing.span_totals())
+    kernels = rec.kernel_time(wall_s)
+    check(sim.in_consensus(), f"node ({label}): the nodes disagree")
+    hashes = {a.closes.get(last) for a in apps}
+    check(hashes == {NET_LEDGER_HASH}, f"node ({label}): ledger {last} is "
+          f"{sorted(map(str, hashes))}, not the reference's")
+    digest = vectors.statement_digest(apps)
+    statements = sum(len(slot.statements_history) for a in apps
+                     for slot in a.herder.scp.known_slots.values())
+    check(digest == NET_STATEMENT_DIGEST, f"node ({label}): the statements' "
+          f"digest {digest} is not the reference's")
+    check(launches["verify_cold"] + launches["verify_hot"] > 0,
+          f"node ({label}): no K1 or K2 launch {launches}")
+    cache = keys.get_verify_cache_stats()
+    return {"build_s": build_s, "auth_s": auth_s, "wall_s": wall_s,
+            "ledgers": f"{start + 1}-{last}",
+            "rounds_per_s": NET_ROUNDS / wall_s, "statements": statements,
+            "distinct_triples": cache["size"], "cache": cache,
+            "trips": rec.figures(), "blocked_s": blocked_s,
+            "launches": launches, "kernels": kernels,
+            "engine_spans_ms": spans}, sim, rec, fallback0
+
+
+def _tamper(apps, rec):
+    """(d): node 1's last statement re-signed with one signature byte
+    flipped, fed to node 0's ``herder.recv_scp_envelope``: rejected on
+    the scp lane; node 1's auth cert with a flipped byte, checked by
+    node 0's ``verify_remote_cert``: refused on the auth lane. Both
+    verdicts from the card, both the oracle's."""
+    a0, a1 = apps[0], apps[1]
+    mine = [st for slot in a1.herder.scp.known_slots.values()
+            for st, _v in slot.statements_history
+            if st.nodeID.value == a1.config.NODE_SEED.public_key.raw]
+    st = mine[-1]
+    payload = herder_mod.scp_envelope_sign_payload(
+        a1.config.network_id(), st)
+    sig = bytearray(a1.config.NODE_SEED.sign(payload))
+    sig[7] ^= 0x20
+    env = SCPEnvelope(statement=st, signature=bytes(sig))
+    trips0 = {ln: len(v) for ln, v in rec.trips.items()}
+    got_env = a0.herder.recv_scp_envelope(env)
+    cert = copy.copy(a1.peer_auth.cert)
+    cert.sig = bytes([cert.sig[0] ^ 0x01]) + bytes(cert.sig[1:])
+    got_cert = a0.peer_auth.verify_remote_cert(
+        cert, a1.config.NODE_SEED.public_key.raw, cert.expiration)
+    trips = {ln: len(v) - trips0.get(ln, 0) for ln, v in rec.trips.items()}
+    cert_payload = a0.peer_auth._cert_payload(cert.expiration,
+                                              cert.pubkey.key)
+    oracle = (ref.verify(st.nodeID.value, payload, bytes(sig)),
+              ref.verify(a1.config.NODE_SEED.public_key.raw, cert_payload,
+                         cert.sig))
+    check(got_env == EnvelopeState.INVALID and got_cert is False and
+          oracle == (False, False) and trips.get("scp") == 1 and
+          trips.get("auth") == 1,
+          f"node (d): envelope {got_env}, cert {got_cert}, oracle {oracle},"
+          f" round trips {trips}")
+    return {"envelope": "INVALID", "cert": False, "round_trips": trips}
+
+
+def _flood_arm(envs):
+    """(c): ``FLOOD_VALIDATORS`` validators over ``FLOOD_SOURCES`` funded
+    sources with the service on and ``BACKGROUND_BUCKET_MERGES`` off, so
+    the nodes' worker-pool work runs inline and the ledgers do not
+    depend on the card's timing. Before each ledger node 1 relays
+    ``FLOOD_PER_LEDGER`` payments to node 0 as overlay TRANSACTION
+    messages; node 0 pre-verifies each on the bulk lane
+    (``_preverify_into_cache``) and admits it with its verdict cached;
+    they flood on by advert and demand, are nominated, validated and
+    closed. Cranked until every payment has applied on every node."""
+    keys.flush_verify_cache()
+    signer_table_cache._reset_for_testing()
+    fallback0 = _fallbacks()
+    rec = _ArmRecord()
+    t = time.perf_counter()
+    accounts = vectors.flood_accounts(FLOOD_SOURCES)
+    accounts_s = time.perf_counter() - t
+    _zero_counts()
+    spans0 = tracing.span_totals()
+    with rec.wrapped():
+        t = time.perf_counter()
+        sim = _network(FLOOD_VALIDATORS, accounts=accounts,
+                       MAX_TX_SET_SIZE=FLOOD_MAX_TX_SET_SIZE,
+                       VERIFY_SERVICE_ENABLED=True,
+                       BACKGROUND_BUCKET_MERGES=False)
+        apps = list(sim.nodes.values())
+        build_s = time.perf_counter() - t
+        sim.start_all_nodes()
+        check(sim.crank_until(lambda: all(
+            a.overlay.authenticated_count() >= FLOOD_VALIDATORS - 1
+            for a in apps), NET_AUTH_TIMEOUT_S),
+            "node (c): the mesh never authenticated")
+        mt = MessageType
+        sent = {mt.FLOOD_ADVERT: 0, mt.FLOOD_DEMAND: 0, mt.TRANSACTION: 0}
+        for app in apps:
+            for peer in app.overlay.peers:
+                def counted(msg, msg_bytes=None, _send=peer.send):
+                    if msg.arm in sent:
+                        sent[msg.arm] += 1
+                    return _send(msg, msg_bytes)
+                peer.send = counted
+        a0, a1 = apps[0], apps[1]
+        id0 = a0.config.NODE_SEED.public_key.raw
+        relay = next(p for p in a1.overlay.peers if p.remote_node_id == id0)
+        start = a0.lm.ledger_seq
+        rec.start_window()
+        t = time.perf_counter()
+        for first in range(0, FLOOD_SOURCES, FLOOD_PER_LEDGER):
+            seq = a0.lm.ledger_seq
+            for e in envs[first:first + FLOOD_PER_LEDGER]:
+                relay.send(StellarMessage.make(mt.TRANSACTION, from_bytes(
+                    xtx.TransactionEnvelope, e)))
+            check(sim.crank_until_ledger(seq + 1, NET_CRANK_TIMEOUT_S),
+                  f"node (c): ledger {seq + 1} not reached")
+        check(sim.crank_until(lambda: all(
+            _balance(a) == FLOOD_DEST_BALANCE for a in apps),
+            NET_CRANK_TIMEOUT_S), "node (c): not every payment applied "
+            f"{[_balance(a) for a in apps]}")
+        wall_s = time.perf_counter() - t
+        blocked_s = rec.blocked_s()
+        svc_snap = verify_service.running_service().snapshot()
+    launches = _counts()
+    spans = _engine_spans(spans0, tracing.span_totals())
+    kernels = rec.kernel_time(wall_s)
+    last = min(a.lm.ledger_seq for a in apps)
+    check(sim.in_consensus(), "node (c): the nodes disagree")
+    hashes = {a.closes.get(FLOOD_LAST_LEDGER) for a in apps}
+    check(last == FLOOD_LAST_LEDGER and hashes == {FLOOD_LEDGER_HASH},
+          f"node (c): the last ledger {last}, ledger {FLOOD_LAST_LEDGER} "
+          f"{sorted(map(str, hashes))}, not the reference's")
+    check(launches["verify_cold"] + launches["verify_hot"] > 0,
+          f"node (c): no K1 or K2 launch {launches}")
+    # every payment pre-verified once on the bulk lane, by node 0's own
+    # site and by nothing else
+    check(rec.site_rows["bulk"] == rec.items["bulk"] == FLOOD_SOURCES and
+          svc_snap["lanes"]["bulk"]["submitted"] == FLOOD_SOURCES,
+          f"node (c): the pre-verify site put {rec.site_rows['bulk']} rows "
+          f"on the bulk lane, the lane took {rec.items['bulk']}, the "
+          f"service counted {svc_snap['lanes']['bulk']['submitted']}, not "
+          f"{FLOOD_SOURCES}")
+    gates = _arm_gates("c", rec, fallback0, svc_snap=svc_snap)
+    closes_ms = np.array([s for a in apps for s in a.close_s]) * 1e3
+    out = {"accounts_s": accounts_s, "build_s": build_s, "wall_s": wall_s,
+           "ledgers": f"{start + 1}-{last}",
+           "rounds_per_s": (last - start) / wall_s,
+           "payments": FLOOD_SOURCES,
+           "preverify": {"calls": rec.site_calls,
+                         "bulk_rows": rec.site_rows["bulk"]},
+           "messages": {"FLOOD_ADVERT": sent[mt.FLOOD_ADVERT],
+                        "FLOOD_DEMAND": sent[mt.FLOOD_DEMAND],
+                        "TRANSACTION": sent[mt.TRANSACTION],
+                        "TRANSACTION_relayed": FLOOD_SOURCES},
+           "lanes": _lane_figures(svc_snap), "trips": rec.figures(),
+           "blocked_s": blocked_s, "launches": launches, "kernels": kernels,
+           "engine_spans_ms": spans,
+           "close_p50_ms": float(np.percentile(closes_ms, 50)),
+           "close_p90_ms": float(np.percentile(closes_ms, 90)),
+           "closes": len(closes_ms), **gates}
+    _stop_process_state()
+    return out
+
+
+def _balance(app):
+    """The flood's destination balance in ``app``'s ledger."""
+    raw = vectors._named(vectors.FLOOD_DESTINATION).public_key.raw
+    entry = app.lm.root.store.get(key_bytes(account_key(
+        xt.account_id(raw))))
+    return entry.data.value.balance
+
+
+def _lane_figures(snap):
+    """Each lane's submitted and verified counts, and the service's
+    dispatches and rows a dispatch, from its snapshot."""
+    return {"lanes": {ln: {k: snap["lanes"][ln][k]
+                           for k in ("submitted", "verified", "shed",
+                                     "rejected", "failed")}
+                      for ln in verify_service.LANES},
+            "dispatches": snap["batches"],
+            "rows_per_dispatch": (snap["totals"]["verified"] /
+                                  max(1, snap["batches"]))}
+
+
+def _arm_line(tag, r):
+    trips = "; ".join(
+        f"{ln} {t['round_trips']} round trips of {t['rows']} rows, "
+        f"p50 {t['p50_ms']:.3f} ms, p99 {t['p99_ms']:.3f} ms, "
+        f"{t['total_s']:.3f} s in all" for ln, t in sorted(r["trips"].items()))
+    blocked = r["blocked_s"]
+    k = r["kernels"]
+    kernels = ", ".join(
+        f"{name} {v['ms']:.3f} ms over {v['launches']} launches of "
+        f"{v['rows']} rows ({v['ms'] / max(1, v['launches']):.4f} ms a "
+        f"launch)" for name, v in k["by_kernel"].items())
+    print(f"[net] {tag}: wall {r['wall_s']:.3f} s ({r.get('ledgers')}), "
+          f"{r.get('rounds_per_s', 0):.3f} rounds/s; build "
+          f"{r['build_s']:.3f} s, handshakes {r.get('auth_s', 0):.3f} s; "
+          f"statements {r.get('statements')}, distinct triples "
+          f"{r.get('distinct_triples')}; {trips}; over the wall, the crank "
+          f"blocked on the verify path {blocked:.3f} s, "
+          f"{blocked / r['wall_s']:.2%} of it, and the kernels (CUDA "
+          f"events around each launch) took {k['ms']:.3f} ms of the "
+          f"card, {k['share_of_wall']:.3%} of it: {kernels}; "
+          f"engine spans {r['engine_spans_ms']}; launches {r['launches']}; "
+          f"oracle re-check of {r['triples']} triples "
+          f"{r['oracle_recheck_s']:.3f} s, all agree")
+
+
+def phase_node_network(info):
+    """Phase 24: the node. (a) ``BASELINE.json`` config 4 on the verify
+    service, (d) tampering on (a)'s network, (b) config 4 on the
+    trickle, (c) a flood over core4 on the service. Each arm's K1, K2
+    and K3 counts are set to 0 just before it and read just after; the
+    process-wide state each arm starts is stopped before the next."""
+    t0 = time.perf_counter()
+    # earlier phases may leave the worker pool (their bucket merges) or
+    # the default service running: the phase starts from none
+    before = _process_state()
+    _stop_process_state()
+    check(batch_engine.device_available(block=True),
+          "node: the device probe did not answer")
+    res = {"card": info["smi"], "state_before": before}
+    launches = {}
+    # (a) and (d)
+    r, sim, rec, fallback0 = _consensus_arm("a", VERIFY_SERVICE_ENABLED=True)
+    svc = verify_service.running_service()
+    check(svc is not None, "node (a): the service is not running")
+    r["lanes"] = _lane_figures(svc.snapshot())
+    r.update(_arm_gates("a", rec, fallback0, svc_snap=svc.snapshot()))
+    res["a"], launches["a"] = r, r["launches"]
+    _arm_line("(a) config 4 on the service", r)
+    print(f"[net] (a) lanes: {r['lanes']}")
+    _zero_counts()
+    with rec.wrapped():
+        res["d"] = _tamper(list(sim.nodes.values()), rec)
+    launches["d"] = _counts()
+    check(rec.oracle.calls == 0, "node (d): the host oracle decided")
+    print(f"[net] (d) tampering on (a)'s network: {res['d']}, launches "
+          f"{launches['d']}")
+    del sim
+    _stop_process_state()
+    # (b)
+    r, sim, rec, fallback0 = _consensus_arm(
+        "b", WORKER_THREADS=NET_TRICKLE_WORKERS)
+    batcher = getattr(keys._backend, "__self__", None)
+    check(isinstance(batcher, TrickleBatcher), "node (b): the verify "
+          f"backend is {keys.get_verifier_backend_name()}")
+    r["trickle_dispatches"] = batcher.dispatches
+    r.update(_arm_gates("b", rec, fallback0))
+    res["b"], launches["b"] = r, r["launches"]
+    _arm_line("(b) config 4 on the trickle", r)
+    print(f"[net] (b) trickle dispatches {r['trickle_dispatches']}")
+    del sim
+    _stop_process_state()
+    # (c): signed in this process; a pool of 8 spawned processes took
+    # 20.1 s on the card's machine, each child importing torch anew
+    t = time.perf_counter()
+    envs = vectors.flood_envelopes(FLOOD_SOURCES, hashlib.sha256(
+        Simulation().network_passphrase.encode()).digest())
+    res["flood_sign_s"] = time.perf_counter() - t
+    print(f"[net] (c) flood: {FLOOD_SOURCES} payments signed in "
+          f"{res['flood_sign_s']:.3f} s")
+    res["c"] = c = _flood_arm(envs)
+    launches["c"] = c["launches"]
+    _arm_line(f"(c) flood of {FLOOD_SOURCES}, {FLOOD_PER_LEDGER} a ledger",
+              c)
+    print(f"[net] (c) accounts {c['accounts_s']:.3f} s; node 0's "
+          f"pre-verify site: {c['preverify']}; lanes "
+          f"{c['lanes']}; messages {c['messages']}; {c['closes']} closes "
+          f"p50 {c['close_p50_ms']:.3f} ms, p90 {c['close_p90_ms']:.3f} ms; "
+          f"every node's ledger {FLOOD_LAST_LEDGER} the reference's, "
+          f"destination {FLOOD_DEST_BALANCE}")
+    check_dispatch_clean([default_verifier(), default_hasher()], "node")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[net] phase {res['seconds']:.1f} s; card {info['smi']}")
+    return res, launches
+
+
 def _sum_counts(runs):
     return {k: sum(r["launches"][k] for r in runs)
             for k in runs[0]["launches"]}
@@ -4860,6 +5486,24 @@ def _chain_counts(launches, kernel):
     return {names[k]: v[kernel] for k, v in launches.items()}
 
 
+def _net_counts(launches, kernel):
+    """Phase 24's counts of one kernel for the kernels line: (a) config 4
+    on the service, (b) on the trickle, (c) the flood, (d) the tampered
+    envelope and cert."""
+    names = {"a": "launches_net_service", "b": "launches_net_trickle",
+             "c": "launches_net_flood", "d": "launches_net_tamper"}
+    return {names[k]: v[kernel] for k, v in launches.items()}
+
+
+def _net_device_ms(net, kernel):
+    """Phase 24's device time of one kernel in each arm's timed window:
+    launches, rows and ms summed from CUDA events around each launch."""
+    return {"net_device_ms": {
+        arm: net[arm]["kernels"]["by_kernel"].get(
+            kernel, {"launches": 0, "rows": 0, "ms": 0.0})
+        for arm in ("a", "b", "c")}}
+
+
 def main() -> int:
     info = phase_device()
     dev = resolve_device(None)
@@ -4927,6 +5571,7 @@ def main() -> int:
     node_close, close_launches = phase_node_close(info, node_traffic)
     del node_traffic
     chain, chain_launches = phase_catchup_chain(info)
+    net, net_launches = phase_node_network(info)
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
@@ -4952,6 +5597,8 @@ def main() -> int:
                      launches_close=close_launches["cold"]["verify_cold"],
                      launches_close_hot=close_launches["hot"]["verify_cold"],
                      **_chain_counts(chain_launches, "verify_cold"),
+                     **_net_counts(net_launches, "verify_cold"),
+                     **_net_device_ms(net, "verify_cold"),
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -4965,6 +5612,8 @@ def main() -> int:
                      launches_txset=txset_launches["hot"]["verify_hot"],
                      launches_close=close_launches["hot"]["verify_hot"],
                      **_chain_counts(chain_launches, "verify_hot"),
+                     **_net_counts(net_launches, "verify_hot"),
+                     **_net_device_ms(net, "verify_hot"),
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -4978,6 +5627,8 @@ def main() -> int:
                      launches_close=close_launches["cold"]["sha256"],
                      launches_close_hot=close_launches["hot"]["sha256"],
                      **_chain_counts(chain_launches, "sha256"),
+                     **_net_counts(net_launches, "sha256"),
+                     **_net_device_ms(net, "sha256"),
                      **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
@@ -5011,6 +5662,7 @@ def main() -> int:
         "deadline": deadline, "probe": probe, "service": service,
         "fleet": fleet_res, "node": node, "node_txset": node_txset,
         "node_close": node_close, "catchup_chain": chain,
+        "node_network": net,
         "fault_domains": fault_domains,
         "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))

@@ -48,7 +48,13 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
   protocol and ``CATCHUP_MAX_TX_SET_SIZE``;
 * :func:`catchup_envelopes` — the plan's payments of some ledgers as
   signed ``TransactionEnvelope`` XDR blobs, signed on a process pool
-  when asked.
+  when asked;
+* :func:`flood_accounts`, :func:`flood_envelopes` — the funded sources
+  of a transaction flood over a simulated network and one signed
+  payment from each to one destination;
+* :func:`core_network` — ``Topologies.core(n)``'s validators, each added
+  with a ``Config`` of its own, and :func:`statement_digest`, the digest
+  of the statements such a network exchanged.
 """
 
 from __future__ import annotations
@@ -779,3 +785,78 @@ def catchup_envelopes(plan: dict, ledgers, network_id: bytes,
     for (ledger, _r), env in zip(rows, signed):
         out.setdefault(ledger, []).append(env)
     return out
+
+
+# ---------------- a flood over loopback ----------------
+
+FLOOD_BALANCE = 1000 * 10_000_000     # 1,000 XLM an account
+FLOOD_AMOUNT = 10_000_000             # 1 XLM a payment
+FLOOD_DESTINATION = "flood-dest"
+
+
+def flood_sources(n: int) -> list:
+    """The names of the flood's ``n`` single-key sources."""
+    return [f"flood-src-{i}" for i in range(n)]
+
+
+def flood_accounts(n: int) -> list:
+    """``(SecretKey, balance)`` of the flood's sources and destination,
+    each funded with ``FLOOD_BALANCE`` (``Simulation.add_node``'s
+    ``accounts``)."""
+    return [(_named(name), FLOOD_BALANCE)
+            for name in flood_sources(n) + [FLOOD_DESTINATION]]
+
+
+def flood_envelopes(n: int, network_id: bytes) -> list:
+    """One payment of ``FLOOD_AMOUNT`` to the destination from each of the
+    ``n`` sources, its first transaction (sequence number 2^32 + 1 over
+    ``seed_root_with_accounts``' 2^32), as signed envelope XDR blobs in
+    source order."""
+    return _sign_payments((network_id, [
+        (name, FLOOD_DESTINATION, (1 << 32) + 1, FLOOD_AMOUNT)
+        for name in flood_sources(n)]))
+
+
+def core_network(n: int, threshold=None, accounts=None, **knobs):
+    """``Topologies.core(n)``: ``n`` validators with keys
+    ``SecretKey.from_seed_str("sim-node-i")``, one quorum set of all of
+    them (threshold ``n - (n - 1) // 3`` unless given), fully connected
+    over loopback. Each node is added through ``Simulation.add_node``
+    with a ``Config`` of its own: ``knobs`` set and
+    ``QUORUM_INTERSECTION_CHECKER`` off, as ``Simulation.add_node`` sets
+    for its default. Returns the ``Simulation``."""
+    from stellar_tpu_torch.main.config import Config
+    from stellar_tpu_torch.scp.quorum import make_node_id
+    from stellar_tpu_torch.simulation.simulation import Simulation
+    from stellar_tpu_torch.xdr.scp import SCPQuorumSet
+    sim = Simulation()
+    node_keys = [SecretKey.from_seed_str(f"sim-node-{i}") for i in range(n)]
+    qset = SCPQuorumSet(
+        threshold=threshold if threshold is not None else n - (n - 1) // 3,
+        validators=[make_node_id(k.public_key.raw) for k in node_keys],
+        innerSets=[])
+    for k in node_keys:
+        cfg = Config()
+        cfg.QUORUM_INTERSECTION_CHECKER = False
+        for name, value in knobs.items():
+            setattr(cfg, name, value)
+        sim.add_node(k, qset, accounts=accounts, config=cfg)
+    ids = [k.public_key.raw for k in node_keys]
+    for i in range(n):
+        for j in range(i + 1, n):
+            sim.add_connection(ids[i], ids[j])
+    return sim
+
+
+def statement_digest(apps, slot=None) -> str:
+    """SHA-256 (hex) over the sorted XDR bytes of every distinct
+    statement in the nodes' ``statements_history``, of one slot or of
+    all."""
+    from stellar_tpu_torch.xdr.scp import SCPStatement
+    blobs = set()
+    for app in apps:
+        for index, s in app.herder.scp.known_slots.items():
+            if slot is None or index == slot:
+                blobs |= {to_bytes(SCPStatement, st)
+                          for st, _validated in s.statements_history}
+    return sha256(b"".join(sorted(blobs))).hex()

@@ -60,13 +60,28 @@ CATCHUP_MODULES = (
     "crypto.shorthash", "bucket.bucket_index", "bucket.bucket_list_db",
     "bucket.bucket_manager", "database", "database.database")
 
+# the node: X25519 and sealed boxes, SCP, the herder, the overlay, the
+# Config and Application, the simulation driver
+NETWORK_MODULES = (
+    "crypto.curve25519", "crypto.nacl_box", "scp", "scp.quorum",
+    "scp.driver", "scp.nomination", "scp.ballot", "scp.slot", "scp.scp",
+    "herder.transaction_queue", "herder.quorum_tracker",
+    "herder.quorum_intersection", "herder.herder", "overlay",
+    "overlay.peer_manager", "overlay.tx_adverts", "overlay.survey_manager",
+    "overlay.peer", "overlay.overlay_manager", "overlay.loopback",
+    "utils.toml_compat", "utils.logging", "main", "main.config",
+    "main.maintainer", "main.application", "simulation",
+    "simulation.simulation")
+
 # modules the port names in a late import but lacks, each waiting for a
-# later slice (ROADMAP.md's known gaps): the Soroban host's wasm stack
+# later slice (ROADMAP.md's known gaps): the Soroban host's wasm stack,
+# and the TCP transport the simulation reaches in its OVER_TCP mode
 KNOWN_GAPS = (
     "stellar_tpu_torch.soroban.wasm", "stellar_tpu_torch.soroban.env",
     "stellar_tpu_torch.soroban.native_wasm",
     "stellar_tpu_torch.soroban.legacy_abi",
-    "stellar_tpu_torch.soroban.asset_contract")
+    "stellar_tpu_torch.soroban.asset_contract",
+    "stellar_tpu_torch.overlay.tcp")
 
 
 def test_forbidden_imports_absent():
@@ -90,7 +105,8 @@ def test_forbidden_imports_absent():
                    "tx/signature_utils", "tx/signature_checker"):
         assert os.path.join(ROOT, "stellar_tpu_torch",
                             f"{module}.py") in files
-    for module in NODE_MODULES + CLOSE_MODULES + CATCHUP_MODULES:
+    for module in (NODE_MODULES + CLOSE_MODULES + CATCHUP_MODULES +
+                   NETWORK_MODULES):
         assert _module_path("stellar_tpu_torch." + module) in files, module
     for path in files:
         with open(path) as f:
@@ -618,6 +634,96 @@ def _ref_catchup_chain(path) -> str:
         REF.keys.set_verifier_backend(previous)
         REF.keys.flush_verify_cache()
     return f"{lcl.hex()} {res.header_hash.hex()}"
+
+
+def test_node_consensus_with_jax_blocked():
+    """A fresh interpreter in which importing jax, stellar_tpu or
+    ``cryptography`` fails (so X25519 runs the port's pure-Python ladder,
+    as on the card's machine) imports every module of the node slice,
+    builds ``Topologies.core4`` over loopback, and cranks it to ledger 4
+    in consensus, verifying through the port's oracle. Ledger 4's header
+    hash and the statements' digest equal the reference's core4, run
+    here."""
+    code = "\n".join([
+        "import sys, importlib, hashlib",
+        "sys.modules['jax'] = None",
+        "sys.modules['stellar_tpu'] = None",
+        "sys.modules['cryptography'] = None",
+        f"for m in {NETWORK_MODULES!r}:",
+        "    importlib.import_module('stellar_tpu_torch.' + m)",
+        "from stellar_tpu_torch.crypto import batch_hasher, curve25519, "
+        "ed25519_ref, keys",
+        "from stellar_tpu_torch.simulation.simulation import Topologies",
+        "from stellar_tpu_torch.xdr.runtime import to_bytes",
+        "from stellar_tpu_torch.xdr.scp import SCPStatement",
+        "assert curve25519._OsslX25519Priv is None",
+        "real = batch_hasher.hash_many",
+        "batch_hasher.hash_many = lambda b, device=None: real(b, "
+        "device='cpu')",
+        "keys.set_verifier_backend(ed25519_ref.verify)",
+        "sim = Topologies.core4()",
+        "seen = set()",
+        "for a in sim.nodes.values():",
+        "    def rec(lcd, _close=a.lm.close_ledger):",
+        "        res = _close(lcd)",
+        "        if lcd.ledger_seq == 4:",
+        "            seen.add(res.header_hash.hex())",
+        "        return res",
+        "    a.lm.close_ledger = rec",
+        "sim.start_all_nodes()",
+        "assert sim.crank_until_ledger(4, timeout=300)",
+        "assert len(seen) == 1, seen",
+        "assert sim.in_consensus()",
+        "blobs = {to_bytes(SCPStatement, st) for a in sim.nodes.values() "
+        "for slot in a.herder.scp.known_slots.values() "
+        "for st, _v in slot.statements_history "
+        "if st.slotIndex <= 4}",
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == "
+        "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
+        "sys.modules if sys.modules[m] is not None)",
+        "print(seen.pop(), hashlib.sha256(b''.join(sorted(blobs)))"
+        ".hexdigest())",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = proc.stdout.strip().splitlines()[-1].split()
+    assert got == _ref_core4(4)
+
+
+def _ref_core4(seq):
+    """The reference's core4 to ledger ``seq`` over its oracle: ledger
+    ``seq``'s header hash (the same on every node) and the digest of the
+    statements of slots up to ``seq``, as hex."""
+    import hashlib
+
+    from stellar_tpu.crypto import ed25519_ref as jref
+    from stellar_tpu.simulation.simulation import Topologies
+    from stellar_tpu.xdr.runtime import to_bytes
+    from stellar_tpu.xdr.scp import SCPStatement
+    previous = keys._backend
+    keys.set_verifier_backend(jref.verify)
+    seen = set()
+    try:
+        sim = Topologies.core4()
+        for app in sim.nodes.values():
+            def rec(lcd, _close=app.lm.close_ledger):
+                res = _close(lcd)
+                if lcd.ledger_seq == seq:
+                    seen.add(res.header_hash.hex())
+                return res
+            app.lm.close_ledger = rec
+        sim.start_all_nodes()
+        assert sim.crank_until_ledger(seq, timeout=300)
+    finally:
+        keys.set_verifier_backend(previous)
+        keys.flush_verify_cache()
+    assert len(seen) == 1
+    blobs = {to_bytes(SCPStatement, st) for a in sim.nodes.values()
+             for slot in a.herder.scp.known_slots.values()
+             for st, _v in slot.statements_history if st.slotIndex <= seq}
+    return [seen.pop(), hashlib.sha256(b"".join(sorted(blobs))).hexdigest()]
 
 
 def _package_names(path):
