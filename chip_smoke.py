@@ -388,7 +388,53 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    spans, the handshakes' wall, the
    flood's messages (FLOOD_ADVERT, FLOOD_DEMAND, TRANSACTION) and its
    closes' p50 and p90;
-25. fault domains, last — on the 4-index verifier: ``fail-device`` on
+25. Soroban — ``BASELINE.json`` config 5, "Soroban InvokeHostFunction
+   txs w/ ed25519 auth entries + FeeBump outer sigs, 500 tx/ledger",
+   through the port's own entry point
+   ``simulation.load_generator.soroban_apply_load``, with
+   ``default_verifier().install()`` as ``keys.verify_sig``'s backend (the
+   signer-table cache on, empty) and the verify cache flushed. (a)
+   ``soroban_apply_load(n_ledgers=3, txs_per_ledger=500)`` on the
+   harness's SCVal program: two setup closes (upload, create), then 3
+   ledgers of 500 ``FeeBumpTransactionFrame`` s, the outer envelope
+   signed by one of 50 payers, the inner by one of 50 sources, each
+   calling ``auth_incr`` with one auth entry signed by one key: 1,500
+   signatures a ledger. The harness's set build runs no ``check_valid``,
+   so each load close's own prefetch sends the 1,000 envelope signatures
+   to one ``verify_batch`` (K1 at a signer's first sight, K2 after), and
+   each auth entry's signature reaches the card alone during apply (one
+   one-row ``verify_batch``). The harness's code is the reference's,
+   untouched: the phase puts a recording ``LedgerManager`` (each close's
+   header hash, ``LedgerCloseMeta`` bytes, verify calls, cache misses and
+   spans) and a timed set build in its module's names; the set build
+   first prefetches the candidate frames' contents hashes through
+   ``hash_many`` (``tx_set.prefetch_contents_hashes``), as a node's
+   admission does: each preimage (792 B inner, 920 B fee-bumped) is
+   longer than K3's 8 blocks take, so the hasher serves them on the
+   host and K3 is not on config 5's path.
+   (b) the compiled wasm counter, ``use_wasm=True``, 1 ledger of 500, on
+   the native engine built in phase 2. (c) ``vectors.
+   soroban_tamper_envelopes``: the compiled counter deployed and invoked
+   by ten sources, one auth signature with a byte flipped. Gates: (a)
+   and (b) apply every transaction and count to 1,500 and 500; the five
+   and three close hashes and the meta bytes' hash equal the reference's
+   (``SOROBAN_CLOSE_HASHES``, ``SOROBAN_META_HASH``, ``SOROBAN_WASM_*``);
+   inside each load close one batch of 1,000 rows, 500 one-row verifies,
+   none of them an envelope's, and 1,500 verify cache misses (the
+   prefetch's 1,000 lookups and the 500 auth entries); (b)'s engine
+   ``wasm-native``; in (c) 9 apply and the flipped one fails with
+   ``txFAILED`` / ``INVOKE_HOST_FUNCTION_TRAPPED`` (the reference's),
+   the card's verdict False; the host oracle decides no signature while
+   an arm runs and decides every triple again after it, with the same
+   verdicts; K1 and K2 launched in (a) and (b), and every contents
+   hash of a load set served on the host (K3 0); the backend restored
+   after each arm; the dispatch clean. Printed: per ledger the signing
+   seconds, the set build, the close, inside it the verify engine's span
+   and the rest, the auth verifies' count, p50, p99 and share of the
+   close; the harness's ``close_mean_ms``, ``close_max_ms`` and
+   ``txs_per_sec``; the kernels' device time (CUDA events around each
+   launch), its share of the wall, and each kernel's launches and rows;
+26. fault domains, last — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
@@ -415,11 +461,14 @@ over (b), ``launches_catchup_build``, ``_skip``, ``_minimal``,
 (e)'s three ledger-128 tx sets and closes), K1, K2 and K3 over each arm
 of phase 24 (``launches_net_service`` (a), ``_trickle`` (b), ``_flood``
 (c), ``_tamper`` (d); each kernel's device time in (a), (b) and (c),
-CUDA events around its launches, as ``net_device_ms``). After every
+CUDA events around its launches, as ``net_device_ms``), K1, K2 and K3
+over each arm of phase 25 (``launches_soroban`` (a),
+``launches_soroban_wasm`` (b), ``launches_soroban_tamper`` (c); the
+device time of (a) and (b) as ``soroban_device_ms``). After every
 main-path
 phase the dispatch must be clean: no device fault (no retry, every
 breaker closed and never opened), no audit mismatch, no conviction; only
-phases 16, 18 (c) and (e), and 25 expect otherwise. The
+phases 16, 18 (c) and (e), and 26 expect otherwise. The
 engine has no host failover, so no row of a card is ever served by the
 host. Before the last line, one ``{"kernels": [...]}`` line holds every
 kernel's launches, times, bound and build; the last line is ``{"ok":
@@ -460,9 +509,8 @@ try:
     from stellar_tpu_torch.crypto import (fleet, ingress, keys, native_prep,
                                           native_verify, tenant, vectors,
                                           verify_service)
-    from stellar_tpu_torch.crypto.batch_hasher import (MAX_BLOCKS,
-                                                       default_hasher,
-                                                       hash_many)
+    from stellar_tpu_torch.crypto.batch_hasher import (
+        MAX_BLOCKS, MIN_DEVICE_HASH_BATCH, default_hasher, hash_many)
     from stellar_tpu_torch.crypto.batch_verifier import (
         BatchVerifier, Ed25519HotWorkload, Ed25519Workload, TrickleBatcher,
         default_verifier)
@@ -482,7 +530,10 @@ try:
     from stellar_tpu_torch.parallel.signer_tables import (
         TABLE_ENTRIES, build_signer_table, signer_table_cache)
     from stellar_tpu_torch.scp.scp import EnvelopeState
+    from stellar_tpu_torch.protocol import CURRENT_LEDGER_PROTOCOL_VERSION
+    from stellar_tpu_torch.simulation import load_generator
     from stellar_tpu_torch.simulation.simulation import Simulation
+    from stellar_tpu_torch.soroban import native_wasm
     from stellar_tpu_torch.utils import (faults, journal, metrics, native,
                                          resilience, tracing)
     from stellar_tpu_torch.utils import workers as bg_workers
@@ -618,7 +669,7 @@ _X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
 _X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
-# phase 25's per-device backoff: far longer than a TxSet call (tens of
+# phase 26's per-device backoff: far longer than a TxSet call (tens of
 # ms), so the degraded call finds index 1 still open
 FAULT_BACKOFF_S = 1.0
 # phase 14's host-oracle breakdown: rows re-verified by one TxSet audit
@@ -754,6 +805,27 @@ FLOOD_MAX_TX_SET_SIZE = 1000
 FLOOD_LAST_LEDGER = 12
 FLOOD_LEDGER_HASH = "355ee4a1d4d34c9f3c3f147d52807747c2a077031cd5c74f3794c67de274e3ef"
 FLOOD_DEST_BALANCE = 20_000_000_000   # 2,000 XLM: 1,000 + 1,000 payments of 1
+# phase 25: BASELINE.json config 5 through simulation.load_generator's
+# soroban_apply_load; two setup closes (upload, create), then the loads.
+# The pins are the reference's closes of the same calls (header hashes
+# in close order, SHA-256 over the closes' LedgerCloseMeta bytes joined)
+SOROBAN_LEDGERS = 3
+SOROBAN_TXS = 500
+SOROBAN_WASM_LEDGERS = 1
+SOROBAN_CLOSE_HASHES = (
+    "dbdc8bdfa4d0784af8b7174533f02cf233ad6b981b6637d77af9a7834e6fcf93",
+    "7124ebaaebe8931f83edfcdd710f9ec191ac0cd04ac3dfe58f5596d9cd0a4023",
+    "afeeeb50ca8d28d32802a4a5c47096fa31c41aad048d5c788e679052a0102b8a",
+    "461b51f69306f1c2944ed9aeb0e531804ec62293bdc4a24d77e424aa13d18b6f",
+    "bce8aeabcaea96e19dac1f762499d9ba2f63cd98c9c35fc1e8320880157bbc97")
+SOROBAN_META_HASH = "79dc56104b85d3dc52588fe5f6c5db30850177a504a475556e09b69549381033"
+SOROBAN_WASM_CLOSE_HASHES = (
+    "8bbd12e36b69c5d1f085a744aa72dc8bd5e8e5a22fe3df0a2d6853bfacb1c917",
+    "cbc097e05748ab810ffbddb5d191a8b2aebf75c9e1484050682fefc1d7382be2",
+    "61078500c94034342ad1e37e3a6d9ce06013fb2acce6b342e20a083c86139381")
+SOROBAN_WASM_META_HASH = "64164fb26f14aa73d85d993b9b5b223aafc7f29a8c1100b70781249eac9000ad"
+SOROBAN_TAMPER_CLOSE_HASH = "fa9e16832b39437aba18d2997471db7bf1d84005f22f557a8d37c6b64d9a46d2"
+SOROBAN_TAMPER_CODE = "INVOKE_HOST_FUNCTION_TRAPPED"
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -1032,22 +1104,28 @@ def phase_device():
 
 
 def phase_build(dev):
-    """K1, K2, K3 and K5 with nvcc, the prep library and the host oracle
-    with g++, all six builds started together. Returns K1's, K2's and
+    """K1, K2, K3 and K5 with nvcc, the prep library, the host oracle and
+    the native wasm engine with its CPython extension with g++, all eight
+    builds started together. Returns K1's, K2's and
     K5's registers, spills, lanes a row and shuffle loops, and K3's
     registers and SASS block loop, by library name."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(_build.LIBRARIES) + 2) as pool:
+    with ThreadPoolExecutor(max_workers=len(_build.LIBRARIES) + 4) as pool:
         jobs = [pool.submit(_build.library, name, dev)
                 for name in _build.LIBRARIES]
         jobs.append(pool.submit(native_prep._load))
         jobs.append(pool.submit(native_verify._load))
+        jobs.append(pool.submit(native_wasm._load))
+        jobs.append(pool.submit(native_wasm._load_ext))
         for job in jobs:
             job.result()
     secs = time.perf_counter() - t0
-    print(f"[build] K1, K2, K3, K5, the prep library and the host oracle "
-          f"built in {secs:.1f} s; host oracle backend "
-          f"{native_verify.backend()}")
+    check(native_wasm.available(), "the native wasm engine did not build")
+    ext = native_wasm._load_ext() is not None
+    print(f"[build] K1, K2, K3, K5, the prep library, the host oracle and "
+          f"the native wasm engine built in {secs:.1f} s; host oracle "
+          f"backend {native_verify.backend()}; the wasm engine's CPython "
+          f"extension {'loaded' if ext else 'not built (ctypes calls)'}")
     for name in _build.LIBRARIES:
         log = _build.build_log(_build.library_path(name))
         for ln in log.splitlines():
@@ -5354,6 +5432,374 @@ def phase_node_network(info):
     return res, launches
 
 
+class _SorobanRecord(_ArmRecord):
+    """What one arm of phase 25 did: ``_ArmRecord``'s kernel events and
+    counted host oracle, every ``BatchVerifier.verify_batch`` call timed
+    with its rows and verdicts kept, each ``SecretKey.sign`` timed, and,
+    through ``simulation.load_generator``'s own names (its code is the
+    reference's, untouched), the harness's ``LedgerManager`` recording
+    each close (header hash, meta bytes, ms, the verify cache's misses,
+    the verify calls and spans inside it) and its set build timed, the
+    candidate set's contents hashes prefetched first
+    (``tx_set.prefetch_contents_hashes`` through ``hash_many``), as a
+    node's admission does before it nominates."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []       # (rows, seconds, open close, a lone message)
+        self.closes = []
+        self.metas = []
+        self.set_builds = []  # (hash ms, build ms, signing s before it)
+        # a device-sized set's contents hashes: (frames, rows the hasher
+        # served on the host, the longest preimage, all hashlib's)
+        self.hashed = []
+        self._sign_s = 0.0
+        self._close = None
+
+    def _verify_batch(self, fn):
+        def verify_batch(v, items, trace_ids=None):
+            t = time.perf_counter()
+            out = fn(v, items, trace_ids=trace_ids)
+            dt = time.perf_counter() - t
+            with self._lock:
+                self.calls.append((len(items), dt, self._close,
+                                   bytes(items[0][1]) if len(items) == 1
+                                   else None))
+                self.triples.update(zip(
+                    (tuple(bytes(x) for x in it) for it in items),
+                    map(bool, out)))
+            return out
+        return verify_batch
+
+    def _sign(self, fn):
+        def sign(sk, msg):
+            t = time.perf_counter()
+            try:
+                return fn(sk, msg)
+            finally:
+                self._sign_s += time.perf_counter() - t
+        return sign
+
+    def _make_set(self, fn):
+        def make(frames, *args, **kwargs):
+            hasher = default_hasher()
+            host0 = hasher.served["host"]
+            t = time.perf_counter()
+            tx_set.prefetch_contents_hashes(frames)
+            hashed = time.perf_counter()
+            out = fn(frames, *args, **kwargs)
+            self.set_builds.append(((hashed - t) * 1e3,
+                                    (time.perf_counter() - hashed) * 1e3,
+                                    self._sign_s))
+            self._sign_s = 0.0
+            if len(frames) >= MIN_DEVICE_HASH_BATCH:
+                self.hashed.append((
+                    len(frames), hasher.served["host"] - host0,
+                    max(len(f.contents_preimage()) for f in frames),
+                    all(f._hash == hashlib.sha256(
+                        f.contents_preimage()).digest() for f in frames)))
+            return out
+        return make
+
+    def _manager(self, cls):
+        rec = self
+
+        class RecordingManager(cls):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.close_meta_stream.append(lambda m: rec.metas.append(
+                    to_bytes(xledger.LedgerCloseMeta, m)))
+
+            def close_ledger(self, lcd):
+                frames = lcd.tx_set.frames
+                msgs = {f.contents_hash() for f in frames} | {
+                    f.inner.contents_hash() for f in frames
+                    if hasattr(f, "inner")}
+                misses0 = keys.get_verify_cache_stats()["misses"]
+                spans0 = tracing.span_totals()
+                rec._close = len(rec.closes)
+                t = time.perf_counter()
+                try:
+                    res = super().close_ledger(lcd)
+                finally:
+                    rec._close = None
+                rec.closes.append({
+                    "ledger": lcd.ledger_seq, "txs": len(frames),
+                    "hash": res.header_hash.hex(),
+                    "ms": (time.perf_counter() - t) * 1e3,
+                    "applied": res.applied_count,
+                    "failed": res.failed_count,
+                    "misses": keys.get_verify_cache_stats()["misses"] -
+                    misses0,
+                    "spans": _close_spans(spans0, tracing.span_totals()),
+                    "envelope_msgs": msgs, "result": res})
+                return res
+        return RecordingManager
+
+    def wrapped(self):
+        return _Wrapped(
+            (BatchVerifier, "verify_batch", self._verify_batch),
+            (keys.SecretKey, "sign", self._sign),
+            (load_generator, "LedgerManager", self._manager),
+            (load_generator, "make_tx_set_from_transactions",
+             self._make_set),
+            (_build, "launch", self._launch),
+            (keys, "_ref", lambda module: self.oracle))
+
+    def in_close(self, index):
+        """The verify calls inside close ``index``: the one-row calls'
+        seconds and messages, and the batches' rows."""
+        ones = [(dt, msg) for rows, dt, c, msg in self.calls
+                if c == index and rows == 1]
+        batches = [rows for rows, _dt, c, _m in self.calls
+                   if c == index and rows > 1]
+        return ones, batches
+
+
+def _soroban_load_gates(label, rec, first_load, txs):
+    """Each load close of a ``soroban_apply_load`` arm: every transaction
+    applied; one batch inside it, the close's own prefetch of the set's
+    envelope signatures (the payer's and the source's of each
+    transaction: the harness's set build runs no ``check_valid``); one
+    one-row verify a transaction, each an auth entry's (its message no
+    envelope's contents hash); the verify cache's misses exactly those
+    two. Returns the auth verifies' figures a close."""
+    out = []
+    for i, c in enumerate(rec.closes[first_load:], first_load):
+        ones, batches = rec.in_close(i)
+        stray = sum(msg in c["envelope_msgs"] for _dt, msg in ones)
+        check(c["applied"] == txs and c["failed"] == 0,
+              f"soroban ({label}): ledger {c['ledger']} applied "
+              f"{c['applied']}, failed {c['failed']}")
+        check(batches == [2 * txs] and len(ones) == txs and stray == 0,
+              f"soroban ({label}): ledger {c['ledger']}: batches {batches},"
+              f" {len(ones)} one-row verifies, {stray} of them an "
+              "envelope's")
+        check(c["misses"] == 2 * txs + txs, f"soroban ({label}): ledger "
+              f"{c['ledger']}: {c['misses']} verify cache misses, not "
+              f"{2 * txs} prefetched and {txs} auth entries")
+        ms = np.array([dt for dt, _m in ones]) * 1e3
+        out.append({"ledger": c["ledger"], "close_ms": c["ms"],
+                    "auth_verifies": len(ones),
+                    "auth_p50_ms": float(np.percentile(ms, 50)),
+                    "auth_p99_ms": float(np.percentile(ms, 99)),
+                    "auth_s": float(ms.sum() / 1e3),
+                    "auth_share_of_close": float(ms.sum() / c["ms"]),
+                    "spans_ms": c["spans"], "misses": c["misses"]})
+    return out
+
+
+def _soroban_arm(label, ledgers, txs, use_wasm, pins, meta_pin):
+    """(a) or (b): ``soroban_apply_load(n_ledgers=ledgers,
+    txs_per_ledger=txs, use_wasm=use_wasm)`` with ``default_verifier()``
+    installed as ``keys.verify_sig``'s backend (the signer-table cache on,
+    empty) and the verify cache flushed; K1's, K2's and K3's counts set
+    to 0 before it and read after. Gated as ``_soroban_load_gates`` says,
+    and on the reference's close hashes ``pins`` and meta hash
+    ``meta_pin``, the host oracle deciding nothing, and its verdicts
+    equal to the card's after the arm."""
+    check(keys._backend is None, f"soroban ({label}): a verify backend is "
+          "installed")
+    keys.flush_verify_cache()
+    signer_table_cache._reset_for_testing()
+    rec = _SorobanRecord()
+    spans0 = tracing.span_totals()
+    _zero_counts()
+    default_verifier().install()
+    try:
+        with rec.wrapped():
+            t = time.perf_counter()
+            out = load_generator.soroban_apply_load(
+                n_ledgers=ledgers, txs_per_ledger=txs, use_wasm=use_wasm)
+            wall_s = time.perf_counter() - t
+        launches = _counts()
+    finally:
+        keys.set_verifier_backend(None)
+    check(keys._backend is None, f"soroban ({label}): the backend was not "
+          "restored")
+    kernels = rec.kernel_time(wall_s)
+    want = ledgers * txs
+    check(out["total_applied"] == want and out["counter_value"] == want,
+          f"soroban ({label}): applied {out['total_applied']}, counter "
+          f"{out['counter_value']}, not {want}")
+    hashes = tuple(c["hash"] for c in rec.closes)
+    meta = hashlib.sha256(b"".join(rec.metas)).hexdigest()
+    check(hashes == pins and meta == meta_pin, f"soroban ({label}): close "
+          f"hashes {hashes}, meta hash {meta}, not the reference's")
+    check(rec.oracle.calls == 0, f"soroban ({label}): the host oracle "
+          f"decided {rec.oracle.calls} signatures")
+    closes = _soroban_load_gates(label, rec, 2, txs)
+    check(launches["verify_cold"] > 0 and launches["verify_hot"] > 0,
+          f"soroban ({label}): K1 and K2 launches {launches}")
+    # a Soroban transaction's contents preimage (792 B inner, 920 B
+    # fee-bumped) is longer than K3's MAX_BLOCKS blocks take, so the
+    # hasher serves every row of these sets on the host: K3 is not on
+    # config 5's path
+    check(len(rec.hashed) == ledgers and all(
+        host == n and longest > 64 * MAX_BLOCKS - 9 and ok
+        for n, host, longest, ok in rec.hashed) and
+        launches["sha256"] == 0, f"soroban ({label}): the sets' contents "
+        f"hashes {rec.hashed}, K3 launches {launches['sha256']}")
+    bad, recheck_s = rec.oracle_recheck()
+    check(not bad and len(rec.triples) >= 3 * want,
+          f"soroban ({label}): the oracle disagrees with {len(bad)} of "
+          f"{len(rec.triples)} verdicts")
+    spans = _engine_spans(spans0, tracing.span_totals())
+    for c, (hash_ms, build_ms, sign_s) in zip(closes, rec.set_builds[2:]):
+        c.update(set_hash_ms=hash_ms, set_build_ms=build_ms, sign_s=sign_s)
+    return {"harness": out, "wall_s": wall_s, "closes": closes,
+            "setup_close_ms": [c["ms"] for c in rec.closes[:2]],
+            "launches": launches, "kernels": kernels,
+            "engine_spans_ms": spans, "triples": len(rec.triples),
+            "oracle_recheck_s": recheck_s,
+            "contents_hashes": [{"frames": n, "host_rows": host,
+                                 "longest_preimage": longest}
+                                for n, host, longest, _ok in rec.hashed],
+            "one_row_calls": sum(r == 1 for r, *_ in rec.calls),
+            "batch_calls": sum(r > 1 for r, *_ in rec.calls)}
+
+
+def _soroban_tamper():
+    """(c): ``vectors.soroban_tamper_envelopes``, the harness's own
+    helpers' upload, creation and ten invocations of the compiled
+    counter, one auth signature with a byte flipped, closed over
+    ``seed_root_with_accounts(vectors.soroban_tamper_accounts())`` with
+    ``default_verifier()`` installed: 9 apply, the flipped one fails with
+    the reference's code, the card's verdict on its auth triple False,
+    the oracle's too."""
+    nid = tx_test_utils.TEST_NETWORK_ID
+    ledgers, bad = vectors.soroban_tamper_envelopes(nid)
+    lm = ledger_manager.LedgerManager(
+        nid, tx_test_utils.seed_root_with_accounts(
+            vectors.soroban_tamper_accounts()))
+    lm.last_closed_header.ledgerVersion = CURRENT_LEDGER_PROTOCOL_VERSION
+    lm.soroban_config = vectors.soroban_tamper_config(lm.soroban_config)
+    lm.root.soroban_config = lm.soroban_config
+    keys.flush_verify_cache()
+    rec = _SorobanRecord()
+    _zero_counts()
+    default_verifier().install()
+    try:
+        with rec.wrapped():
+            for envs in ledgers:
+                frames = [make_transaction_frame(nid, from_bytes(
+                    xtx.TransactionEnvelope, e)) for e in envs]
+                txset, excluded = tx_set.make_tx_set_from_transactions(
+                    frames, lm.last_closed_header, lm.last_closed_hash,
+                    soroban_config=lm.soroban_config)
+                check(not excluded, f"soroban (c): {len(excluded)} excluded")
+                res = lm.close_ledger(ledger_manager.LedgerCloseData(
+                    lm.ledger_seq + 1, txset,
+                    lm.last_closed_header.scpValue.closeTime + 5))
+        launches = _counts()
+    finally:
+        keys.set_verifier_backend(None)
+    flipped = frames[vectors.SOROBAN_TAMPER_FLIPPED].contents_hash()
+    codes = {}
+    for pair in res.result_pairs:
+        r = pair.result.result
+        op = r.value[0].value.value.arm if isinstance(r.value, list) else None
+        codes[pair.transactionHash] = (
+            xresults.TransactionResultCode.name_of(r.arm),
+            None if op is None else
+            xresults.InvokeHostFunctionResultCode.name_of(op))
+    card = rec.triples.get(bad)
+    check(res.applied_count == vectors.SOROBAN_TAMPER_TXS - 1 and
+          res.failed_count == 1 and
+          codes[flipped] == ("txFAILED", SOROBAN_TAMPER_CODE) and
+          res.header_hash.hex() == SOROBAN_TAMPER_CLOSE_HASH,
+          f"soroban (c): applied {res.applied_count}, failed "
+          f"{res.failed_count}, the flipped one {codes.get(flipped)}, "
+          f"header hash {res.header_hash.hex()}")
+    check(card is False and ref.verify(*bad) is False and
+          rec.oracle.calls == 0, f"soroban (c): the card's verdict {card}, "
+          f"the oracle decided {rec.oracle.calls} while the arm ran")
+    check(launches["verify_cold"] + launches["verify_hot"] > 0,
+          f"soroban (c): no K1 or K2 launch {launches}")
+    bad_verdicts, _s = rec.oracle_recheck()
+    check(not bad_verdicts, f"soroban (c): the oracle disagrees with "
+          f"{len(bad_verdicts)} verdicts")
+    return {"applied": res.applied_count, "failed": res.failed_count,
+            "flipped": codes[flipped], "card_verdict": card,
+            "launches": launches, "triples": len(rec.triples)}
+
+
+def _soroban_line(tag, r, card):
+    h = r["harness"]
+    k = r["kernels"]
+    kernels = ", ".join(
+        f"{name} {v['ms']:.3f} ms over {v['launches']} launches of "
+        f"{v['rows']} rows" for name, v in k["by_kernel"].items())
+    print(f"[soroban] {tag}: engine {h['engine']}, applied "
+          f"{h['total_applied']}, counter {h['counter_value']}; the "
+          f"harness's close_mean_ms {h['close_mean_ms']}, close_max_ms "
+          f"{h['close_max_ms']}, txs_per_sec {h['txs_per_sec']}; wall "
+          f"{r['wall_s']:.3f} s (setup closes {r['setup_close_ms']} ms); "
+          f"the kernels (CUDA events around each launch) took "
+          f"{k['ms']:.3f} ms of the card, {k['share_of_wall']:.3%} of the "
+          f"wall: {kernels}; the load sets' contents hashes "
+          f"{r['contents_hashes']} (every row over K3's {MAX_BLOCKS} "
+          f"blocks, so hashed on the host); verify calls: "
+          f"{r['one_row_calls']} of one "
+          f"row, {r['batch_calls']} batches; engine spans "
+          f"{r['engine_spans_ms']}; launches {r['launches']}; oracle "
+          f"re-check of {r['triples']} triples {r['oracle_recheck_s']:.3f} "
+          f"s, all agree; card {card}")
+    for c in r["closes"]:
+        sp = c["spans_ms"]
+        print(f"[soroban] {tag} ledger {c['ledger']}: signing "
+              f"{c['sign_s']:.3f} s, set build {c['set_build_ms']:.3f} ms "
+              f"(contents hashes first {c['set_hash_ms']:.3f} ms), close "
+              f"{c['close_ms']:.3f} ms (ledger.close {sp['close_zone']:.3f}"
+              f", verify span {sp['verify_span']:.3f}, bucket.addBatch "
+              f"{sp['add_batch']:.3f}, rest {sp['rest']:.3f}); "
+              f"{c['auth_verifies']} auth verifies, p50 "
+              f"{c['auth_p50_ms']:.3f} ms, p99 {c['auth_p99_ms']:.3f} ms, "
+              f"{c['auth_s']:.3f} s in all, {c['auth_share_of_close']:.2%} "
+              f"of the close; {c['misses']} verify cache misses; card "
+              f"{card}")
+
+
+def phase_soroban(info):
+    """Phase 25: ``BASELINE.json`` config 5 through the port's
+    ``simulation.load_generator.soroban_apply_load``: (a) 3 ledgers of 500
+    fee-bumped invocations on the SCVal program, (b) the compiled wasm
+    counter on the native engine, (c) a tampered auth entry. Each arm's
+    K1, K2 and K3 counts are set to 0 just before it and read just
+    after."""
+    t0 = time.perf_counter()
+    before = _process_state()
+    _stop_process_state()
+    check(batch_engine.device_available(block=True),
+          "soroban: the device probe did not answer")
+    res = {"card": info["smi"], "state_before": before}
+    launches = {}
+    res["a"] = _soroban_arm("a", SOROBAN_LEDGERS, SOROBAN_TXS, False,
+                            SOROBAN_CLOSE_HASHES, SOROBAN_META_HASH)
+    check(res["a"]["harness"]["engine"] == "scval",
+          f"soroban (a): engine {res['a']['harness']['engine']}")
+    launches["a"] = res["a"]["launches"]
+    _soroban_line(f"(a) config 5, {SOROBAN_LEDGERS} x {SOROBAN_TXS}",
+                  res["a"], info["smi"])
+    res["b"] = _soroban_arm("b", SOROBAN_WASM_LEDGERS, SOROBAN_TXS, True,
+                            SOROBAN_WASM_CLOSE_HASHES,
+                            SOROBAN_WASM_META_HASH)
+    check(res["b"]["harness"]["engine"] == "wasm-native",
+          f"soroban (b): engine {res['b']['harness']['engine']}")
+    launches["b"] = res["b"]["launches"]
+    _soroban_line(f"(b) the compiled counter, {SOROBAN_WASM_LEDGERS} x "
+                  f"{SOROBAN_TXS}", res["b"], info["smi"])
+    res["c"] = _soroban_tamper()
+    launches["c"] = res["c"]["launches"]
+    print(f"[soroban] (c) a tampered auth entry: {res['c']}")
+    check_dispatch_clean([default_verifier(), default_hasher()], "soroban")
+    _stop_process_state()
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[soroban] phase {res['seconds']:.1f} s; card {info['smi']}")
+    return res, launches
+
+
 def _sum_counts(runs):
     return {k: sum(r["launches"][k] for r in runs)
             for k in runs[0]["launches"]}
@@ -5473,35 +5919,38 @@ def kernel_entry(name, source, replaces, jax_function, launches,
         "card": card, **extra}
 
 
-def _chain_counts(launches, kernel):
-    """Phase 23's counts of one kernel for the kernels line: (a)'s cold
-    passes, (b)'s hot ones, the build apart, (c), (d), (e)'s catchup and
-    (e)'s three ledger-128 tx sets and closes."""
-    names = {"cold": "launches_catchup", "hot": "launches_catchup_hot",
-             "build": "launches_catchup_build",
-             "skip": "launches_catchup_skip",
-             "minimal": "launches_catchup_minimal",
-             "persist": "launches_catchup_persist",
-             "next": "launches_catchup_next"}
+# the kernels line's name of each arm's launch counts: phase 23's (a)
+# cold passes, (b) hot ones, the build apart, (c), (d), (e)'s catchup and
+# (e)'s three ledger-128 tx sets and closes; phase 24's (a) config 4 on
+# the service, (b) on the trickle, (c) the flood, (d) the tampered
+# envelope and cert; phase 25's (a) config 5, (b) the compiled counter,
+# (c) the tampered auth entry
+CHAIN_COUNTS = {"cold": "launches_catchup", "hot": "launches_catchup_hot",
+                "build": "launches_catchup_build",
+                "skip": "launches_catchup_skip",
+                "minimal": "launches_catchup_minimal",
+                "persist": "launches_catchup_persist",
+                "next": "launches_catchup_next"}
+NET_COUNTS = {"a": "launches_net_service", "b": "launches_net_trickle",
+              "c": "launches_net_flood", "d": "launches_net_tamper"}
+SOROBAN_COUNTS = {"a": "launches_soroban", "b": "launches_soroban_wasm",
+                  "c": "launches_soroban_tamper"}
+
+
+def _arm_counts(launches, kernel, names):
+    """One kernel's counts in each arm of a phase (``launches`` by arm),
+    under the arm's name in ``names``, for the kernels line."""
     return {names[k]: v[kernel] for k, v in launches.items()}
 
 
-def _net_counts(launches, kernel):
-    """Phase 24's counts of one kernel for the kernels line: (a) config 4
-    on the service, (b) on the trickle, (c) the flood, (d) the tampered
-    envelope and cert."""
-    names = {"a": "launches_net_service", "b": "launches_net_trickle",
-             "c": "launches_net_flood", "d": "launches_net_tamper"}
-    return {names[k]: v[kernel] for k, v in launches.items()}
-
-
-def _net_device_ms(net, kernel):
-    """Phase 24's device time of one kernel in each arm's timed window:
-    launches, rows and ms summed from CUDA events around each launch."""
-    return {"net_device_ms": {
-        arm: net[arm]["kernels"]["by_kernel"].get(
+def _arm_device_ms(res, kernel, arms, key):
+    """One kernel's device time in each of ``arms`` of a phase's result
+    ``res`` (each arm's timed window): launches, rows and ms summed from
+    CUDA events around each launch, under ``key``."""
+    return {key: {
+        arm: res[arm]["kernels"]["by_kernel"].get(
             kernel, {"launches": 0, "rows": 0, "ms": 0.0})
-        for arm in ("a", "b", "c")}}
+        for arm in arms}}
 
 
 def main() -> int:
@@ -5572,6 +6021,7 @@ def main() -> int:
     del node_traffic
     chain, chain_launches = phase_catchup_chain(info)
     net, net_launches = phase_node_network(info)
+    soroban, soroban_launches = phase_soroban(info)
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
@@ -5596,9 +6046,15 @@ def main() -> int:
                          "verify_cold"],
                      launches_close=close_launches["cold"]["verify_cold"],
                      launches_close_hot=close_launches["hot"]["verify_cold"],
-                     **_chain_counts(chain_launches, "verify_cold"),
-                     **_net_counts(net_launches, "verify_cold"),
-                     **_net_device_ms(net, "verify_cold"),
+                     **_arm_counts(chain_launches, "verify_cold",
+                                   CHAIN_COUNTS),
+                     **_arm_counts(net_launches, "verify_cold", NET_COUNTS),
+                     **_arm_device_ms(net, "verify_cold", ("a", "b", "c"),
+                                      "net_device_ms"),
+                     **_arm_counts(soroban_launches, "verify_cold",
+                                   SOROBAN_COUNTS),
+                     **_arm_device_ms(soroban, "verify_cold", ("a", "b"),
+                                      "soroban_device_ms"),
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -5611,9 +6067,15 @@ def main() -> int:
                      launches_node=node_launches["hot"]["verify_hot"],
                      launches_txset=txset_launches["hot"]["verify_hot"],
                      launches_close=close_launches["hot"]["verify_hot"],
-                     **_chain_counts(chain_launches, "verify_hot"),
-                     **_net_counts(net_launches, "verify_hot"),
-                     **_net_device_ms(net, "verify_hot"),
+                     **_arm_counts(chain_launches, "verify_hot",
+                                   CHAIN_COUNTS),
+                     **_arm_counts(net_launches, "verify_hot", NET_COUNTS),
+                     **_arm_device_ms(net, "verify_hot", ("a", "b", "c"),
+                                      "net_device_ms"),
+                     **_arm_counts(soroban_launches, "verify_hot",
+                                   SOROBAN_COUNTS),
+                     **_arm_device_ms(soroban, "verify_hot", ("a", "b"),
+                                      "soroban_device_ms"),
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -5626,9 +6088,15 @@ def main() -> int:
                      launches_txset_hot=txset_launches["hot"]["sha256"],
                      launches_close=close_launches["cold"]["sha256"],
                      launches_close_hot=close_launches["hot"]["sha256"],
-                     **_chain_counts(chain_launches, "sha256"),
-                     **_net_counts(net_launches, "sha256"),
-                     **_net_device_ms(net, "sha256"),
+                     **_arm_counts(chain_launches, "sha256",
+                                   CHAIN_COUNTS),
+                     **_arm_counts(net_launches, "sha256", NET_COUNTS),
+                     **_arm_device_ms(net, "sha256", ("a", "b", "c"),
+                                      "net_device_ms"),
+                     **_arm_counts(soroban_launches, "sha256",
+                                   SOROBAN_COUNTS),
+                     **_arm_device_ms(soroban, "sha256", ("a", "b"),
+                                      "soroban_device_ms"),
                      **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
@@ -5662,7 +6130,7 @@ def main() -> int:
         "deadline": deadline, "probe": probe, "service": service,
         "fleet": fleet_res, "node": node, "node_txset": node_txset,
         "node_close": node_close, "catchup_chain": chain,
-        "node_network": net,
+        "node_network": net, "soroban": soroban,
         "fault_domains": fault_domains,
         "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))

@@ -54,7 +54,11 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
   payment from each to one destination;
 * :func:`core_network` — ``Topologies.core(n)``'s validators, each added
   with a ``Config`` of its own, and :func:`statement_digest`, the digest
-  of the statements such a network exchanged.
+  of the statements such a network exchanged;
+* :func:`soroban_tamper_accounts`, :func:`soroban_tamper_config`,
+  :func:`soroban_tamper_envelopes` — the counter contract deployed and
+  invoked by ten sources, one auth entry's signature with a byte
+  flipped.
 """
 
 from __future__ import annotations
@@ -860,3 +864,129 @@ def statement_digest(apps, slot=None) -> str:
                 blobs |= {to_bytes(SCPStatement, st)
                           for st, _validated in s.statements_history}
     return sha256(b"".join(sorted(blobs))).hex()
+
+
+# ---------------- Soroban: a tampered auth entry ----------------
+
+SOROBAN_TAMPER_TXS = 10
+SOROBAN_TAMPER_FLIPPED = 3            # the invocation whose auth is bad
+SOROBAN_TAMPER_BALANCE = 10**13
+SOROBAN_TAMPER_EXPIRY = 1000          # the auth entries' last ledger
+
+
+def _tamper_sources() -> list:
+    return [_named(f"sb-tamper-src-{i}") for i in range(SOROBAN_TAMPER_TXS)]
+
+
+def soroban_tamper_accounts() -> list:
+    """``(SecretKey, balance)`` of the invocations' sources (source 0
+    deploys the contract) and of the auth entries' signer
+    (``seed_root_with_accounts``' accounts)."""
+    return [(k, SOROBAN_TAMPER_BALANCE)
+            for k in _tamper_sources() + [_named("sb-tamper-auth")]]
+
+
+def soroban_tamper_config(cfg):
+    """``cfg`` (a ``SorobanNetworkConfig`` of either package) with
+    ``soroban_apply_load``'s raised caps and no footprint shaping: a
+    thousand transactions a ledger, ten entries read and eight written a
+    transaction, two events and two million instructions."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, ledger_max_tx_count=max(1000, SOROBAN_TAMPER_TXS),
+        tx_max_read_ledger_entries=max(cfg.tx_max_read_ledger_entries, 10),
+        tx_max_write_ledger_entries=max(cfg.tx_max_write_ledger_entries, 8),
+        tx_max_contract_events_size_bytes=max(
+            cfg.tx_max_contract_events_size_bytes, 2 * 128),
+        tx_max_instructions=max(cfg.tx_max_instructions, 2_000_000))
+
+
+def soroban_tamper_envelopes(network_id: bytes,
+                             flipped: int = SOROBAN_TAMPER_FLIPPED):
+    """Three ledgers of envelope XDR blobs over
+    ``seed_root_with_accounts(soroban_tamper_accounts())`` at the current
+    protocol, built with ``simulation.load_generator``'s own helpers:
+    the counter contract's upload and its creation by source 0, each
+    alone in a ledger, then ``SOROBAN_TAMPER_TXS`` invocations of its
+    ``auth_incr``, one a source, each carrying one auth entry that the
+    signer signs for its own nonce. Invocation ``flipped``'s auth
+    signature has byte 7 flipped. Returns the three lists and that
+    entry's ``(pk, payload, sig)`` triple."""
+    from stellar_tpu_torch.simulation.load_generator import (
+        _deploy_frames, _soroban_data, _soroban_op,
+    )
+    from stellar_tpu_torch.soroban.example_contracts import counter_wasm
+    from stellar_tpu_torch.soroban.host import (
+        auth_payload_hash, contract_code_key, contract_data_key,
+        scaddress_account, scaddress_contract, sym,
+    )
+    from stellar_tpu_torch.tx.tx_test_utils import make_tx
+    from stellar_tpu_torch.xdr.contract import (
+        ContractDataDurability, HostFunction, HostFunctionType,
+        InvokeContractArgs, SCMapEntry, SCNonceKey, SCVal, SCValType,
+        SorobanAddressCredentials, SorobanAuthorizationEntry,
+        SorobanAuthorizedFunction, SorobanAuthorizedFunctionType,
+        SorobanAuthorizedInvocation, SorobanCredentials,
+        SorobanCredentialsType,
+    )
+    T = SCValType
+    srcs, signer = _tamper_sources(), _named("sb-tamper-auth")
+    start = 1 << 32   # seed_root_with_accounts' sequence numbers
+    up, create, contract_id, code_hash, inst_key = _deploy_frames(
+        srcs[0], start + 1, start + 2, counter_wasm(), network_id,
+        salt=b"\x77" * 32)
+    addr = scaddress_contract(contract_id)
+    addr_signer = scaddress_account(xt.account_id(signer.public_key.raw))
+    counter_key = contract_data_key(addr, sym("count"),
+                                    ContractDataDurability.PERSISTENT)
+    args = [SCVal.make(T.SCV_ADDRESS, addr_signer)]
+    invokes, bad = [], None
+    for i, src in enumerate(srcs):
+        nonce = i + 1
+        invocation = SorobanAuthorizedInvocation(
+            function=SorobanAuthorizedFunction.make(
+                SorobanAuthorizedFunctionType
+                .SOROBAN_AUTHORIZED_FUNCTION_TYPE_CONTRACT_FN,
+                InvokeContractArgs(contractAddress=addr,
+                                   functionName=b"auth_incr", args=args)),
+            subInvocations=[])
+        payload = auth_payload_hash(network_id, nonce,
+                                    SOROBAN_TAMPER_EXPIRY, invocation)
+        sig = bytearray(signer.sign(payload))
+        if i == flipped:
+            sig[7] ^= 0x20
+            bad = (signer.public_key.raw, payload, bytes(sig))
+        sig_val = SCVal.make(T.SCV_VEC, [SCVal.make(T.SCV_MAP, [
+            SCMapEntry(key=sym("public_key"),
+                       val=SCVal.make(T.SCV_BYTES, signer.public_key.raw)),
+            SCMapEntry(key=sym("signature"),
+                       val=SCVal.make(T.SCV_BYTES, bytes(sig)))])])
+        auth = SorobanAuthorizationEntry(
+            credentials=SorobanCredentials.make(
+                SorobanCredentialsType.SOROBAN_CREDENTIALS_ADDRESS,
+                SorobanAddressCredentials(
+                    address=addr_signer, nonce=nonce,
+                    signatureExpirationLedger=SOROBAN_TAMPER_EXPIRY,
+                    signature=sig_val)),
+            rootInvocation=invocation)
+        nonce_key = contract_data_key(
+            addr_signer, SCVal.make(T.SCV_LEDGER_KEY_NONCE,
+                                    SCNonceKey(nonce=nonce)),
+            ContractDataDurability.TEMPORARY)
+        tx = make_tx(
+            src, start + (3 if i == 0 else 1),
+            [_soroban_op(HostFunction.make(
+                HostFunctionType.HOST_FUNCTION_TYPE_INVOKE_CONTRACT,
+                InvokeContractArgs(contractAddress=addr,
+                                   functionName=b"auth_incr", args=args)),
+                [auth])],
+            fee=5_000_200,
+            soroban_data=_soroban_data(
+                read_only=[inst_key, contract_code_key(code_hash)],
+                read_write=[counter_key, nonce_key]),
+            network_id=network_id)
+        invokes.append(to_bytes(xtx.TransactionEnvelope, tx.envelope))
+    ledgers = [[to_bytes(xtx.TransactionEnvelope, up.envelope)],
+               [to_bytes(xtx.TransactionEnvelope, create.envelope)],
+               invokes]
+    return ledgers, bad

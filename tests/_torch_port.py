@@ -3,12 +3,17 @@
 ``test_torch_bucket.py``, ``test_torch_ledger_close.py``,
 ``test_torch_txmeta.py``, ``test_torch_catchup.py``,
 ``test_torch_persistence.py``, ``test_torch_scp.py``,
-``test_torch_overlay.py``): the source comparison of a copied module
+``test_torch_overlay.py``, ``test_torch_soroban.py``,
+``test_torch_wasm.py``, ``test_torch_load_generator.py``): the source
+comparison of a copied module
 with the reference's, the carrying of XDR values and ledgers from the
 port to the reference through their bytes (objects never cross the two
-packages), and ``chip_smoke.py``'s pinned constants."""
+packages), ``chip_smoke.py``'s pinned constants, and the load
+generator's harnesses run with each close recorded."""
 
 import ast
+import hashlib
+import importlib
 from pathlib import Path
 
 from stellar_tpu.ledger import ledger_txn as jlt
@@ -22,10 +27,7 @@ ROOT = Path(__file__).resolve().parent.parent
 # What each partial copy leaves out, by top-level name and
 # ``Class.method``; ROADMAP.md's queue 1 lists the same names.
 PARTIAL = {
-    "tx/ops/soroban_ops.py": {
-        "_load_with_ttl", "_extend_entry_ttl", "_write_ttl",
-        "_SorobanBase", "InvokeHostFunctionOpFrame",
-        "ExtendFootprintTTLOpFrame", "RestoreFootprintOpFrame"},
+    "soroban/native_wasm.py": {"_LIB", "_ext_lib_path", "_build_lib"},
     "main/application.py": {
         "Application._apply_global_config", "Application._verify_health"},
 }
@@ -33,12 +35,12 @@ PARTIAL = {
 # The partial copies that define every name of their ``PARTIAL`` entry
 # anew, the port's own version in place of the reference's (ROADMAP.md's
 # divergences say why); those names are taken out of both sides.
-REPLACED = {"main/application.py"}
+REPLACED = {"main/application.py", "soroban/native_wasm.py"}
 
 
 class _Normalize(ast.NodeTransformer):
     """Drops docstrings and names the reference's package as the port's
-    in import statements."""
+    in import statements and in ``__import__`` calls."""
 
     @staticmethod
     def _strip(node):
@@ -75,6 +77,15 @@ class _Normalize(ast.NodeTransformer):
     def visit_Import(self, node):
         for alias in node.names:
             alias.name = self._rename(alias.name)
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        if isinstance(node.func, ast.Name) and \
+                node.func.id == "__import__" and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str):
+            node.args[0].value = self._rename(node.args[0].value)
         return node
 
 
@@ -179,3 +190,40 @@ def check_copy(rel: str):
             port = _without(port, PARTIAL[rel])
         assert _take_imports(port) <= _take_imports(ref), rel
     assert ast.dump(port) == ast.dump(ref), rel
+
+
+# what a harness returns that depends on the clock
+_TIMING_KEYS = ("_ms", "_per_sec", "over_p50")
+
+
+def harness_closes(package: str, harness: str, **kwargs):
+    """``simulation.load_generator.<harness>(**kwargs)`` of ``package``
+    with the harness's ``LedgerManager`` (a name in its module) recording
+    each close: the result less its timings, the header hashes (hex) in
+    close order, and SHA-256 (hex) over the closes' ``LedgerCloseMeta``
+    bytes joined, as ``chip_smoke.py`` phase 25 pins them."""
+    lg = importlib.import_module(f"{package}.simulation.load_generator")
+    xl = importlib.import_module(f"{package}.xdr.ledger")
+    rt = importlib.import_module(f"{package}.xdr.runtime")
+    hashes, metas = [], []
+
+    class Recording(lg.LedgerManager):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.close_meta_stream.append(lambda m: metas.append(
+                rt.to_bytes(xl.LedgerCloseMeta, m)))
+
+        def close_ledger(self, lcd):
+            res = super().close_ledger(lcd)
+            hashes.append(res.header_hash.hex())
+            return res
+
+    saved = lg.LedgerManager
+    lg.LedgerManager = Recording
+    try:
+        out = getattr(lg, harness)(**kwargs)
+    finally:
+        lg.LedgerManager = saved
+    out = {k: v for k, v in out.items()
+           if not any(t in k for t in _TIMING_KEYS)}
+    return out, hashes, hashlib.sha256(b"".join(metas)).hexdigest()

@@ -73,15 +73,20 @@ NETWORK_MODULES = (
     "main.maintainer", "main.application", "simulation",
     "simulation.simulation")
 
+# Soroban: the host's curves, the wasm stack, the host environment, the
+# three operation frames and the load generator
+SOROBAN_MODULES = (
+    "crypto.keccak", "crypto.secp256", "crypto._h2c_constants",
+    "crypto.h2c", "crypto.bls12_381", "soroban.wasm",
+    "soroban.env_interface", "soroban.legacy_abi", "soroban.asset_contract",
+    "soroban.env", "soroban.native_wasm", "soroban.wasm_builder",
+    "soroban.example_contracts", "tx.ops.soroban_ops",
+    "simulation.load_generator")
+
 # modules the port names in a late import but lacks, each waiting for a
-# later slice (ROADMAP.md's known gaps): the Soroban host's wasm stack,
-# and the TCP transport the simulation reaches in its OVER_TCP mode
-KNOWN_GAPS = (
-    "stellar_tpu_torch.soroban.wasm", "stellar_tpu_torch.soroban.env",
-    "stellar_tpu_torch.soroban.native_wasm",
-    "stellar_tpu_torch.soroban.legacy_abi",
-    "stellar_tpu_torch.soroban.asset_contract",
-    "stellar_tpu_torch.overlay.tcp")
+# later slice (ROADMAP.md's known gaps): the TCP transport the
+# simulation reaches in its OVER_TCP mode
+KNOWN_GAPS = ("stellar_tpu_torch.overlay.tcp",)
 
 
 def test_forbidden_imports_absent():
@@ -106,7 +111,7 @@ def test_forbidden_imports_absent():
         assert os.path.join(ROOT, "stellar_tpu_torch",
                             f"{module}.py") in files
     for module in (NODE_MODULES + CLOSE_MODULES + CATCHUP_MODULES +
-                   NETWORK_MODULES):
+                   NETWORK_MODULES + SOROBAN_MODULES):
         assert _module_path("stellar_tpu_torch." + module) in files, module
     for path in files:
         with open(path) as f:
@@ -690,6 +695,66 @@ def test_node_consensus_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = proc.stdout.strip().splitlines()[-1].split()
     assert got == _ref_core4(4)
+
+
+def test_soroban_load_with_jax_blocked():
+    """A fresh interpreter in which importing jax or stellar_tpu fails
+    imports every module of the Soroban slice and runs ``BASELINE.json``
+    config 5 cut to one ledger of 5 transactions
+    (``soroban_apply_load(n_ledgers=1, txs_per_ledger=5)``) over the
+    pure-Python oracle, on the SCVal program and on the compiled counter
+    (the port's native engine); every close's header hash equals the
+    reference's run of the same calls here."""
+    code = "\n".join([
+        "import sys, importlib",
+        "sys.modules['jax'] = None",
+        "sys.modules['stellar_tpu'] = None",
+        f"for m in {SOROBAN_MODULES!r}:",
+        "    importlib.import_module('stellar_tpu_torch.' + m)",
+        "import stellar_tpu_torch.tx.ops",
+        "from stellar_tpu_torch.crypto import ed25519_ref, keys",
+        "from stellar_tpu_torch.simulation import load_generator as lg",
+        "keys.set_verifier_backend(ed25519_ref.verify)",
+        "hashes = []",
+        "class Recording(lg.LedgerManager):",
+        "    def close_ledger(self, lcd):",
+        "        res = super().close_ledger(lcd)",
+        "        hashes.append(res.header_hash.hex())",
+        "        return res",
+        "lg.LedgerManager = Recording",
+        "for use_wasm in (False, True):",
+        "    out = lg.soroban_apply_load(n_ledgers=1, txs_per_ledger=5, "
+        "use_wasm=use_wasm)",
+        "    assert out['total_applied'] == out['counter_value'] == 5, out",
+        "    assert out['engine'] == ('wasm-native' if use_wasm else "
+        "'scval'), out",
+        "assert not any(m == 'jax' or m.startswith('jax.') or m == "
+        "'stellar_tpu' or m.startswith('stellar_tpu.') for m in "
+        "sys.modules if sys.modules[m] is not None)",
+        "print(' '.join(hashes))",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import stellar_tpu.tx.ops  # noqa: F401
+    from stellar_tpu.crypto import ed25519_ref as jref
+
+    from tests._torch_port import harness_closes
+    previous = keys._backend
+    keys.set_verifier_backend(jref.verify)
+    want = []
+    try:
+        for use_wasm in (False, True):
+            _out, hashes, _meta = harness_closes(
+                "stellar_tpu", "soroban_apply_load", n_ledgers=1,
+                txs_per_ledger=5, use_wasm=use_wasm)
+            want += hashes
+    finally:
+        keys.set_verifier_backend(previous)
+        keys.flush_verify_cache()
+    assert len(want) == 6
+    assert proc.stdout.strip().splitlines()[-1].split() == want
 
 
 def _ref_core4(seq):

@@ -65,21 +65,23 @@ def test_copy_equals_reference(rel):
 
 
 def test_registry_equals_reference_but_soroban():
-    """The port registers every classic type the reference does; the
-    three Soroban types wait for the Soroban slice, and a frame holding
-    one raises ``NotImplementedError``, as for any unregistered type."""
+    """The port registers every type the reference does, the three
+    Soroban types too since the Soroban slice, each the reference's
+    class by name; a frame holding one builds and reaches its checks."""
     soroban = {OT.INVOKE_HOST_FUNCTION, OT.EXTEND_FOOTPRINT_TTL,
                OT.RESTORE_FOOTPRINT}
-    assert set(jop_frame._REGISTRY) - set(pop_frame._REGISTRY) == soroban
-    assert len(pop_frame._REGISTRY) == 24
+    assert set(jop_frame._REGISTRY) == set(pop_frame._REGISTRY)
+    assert soroban <= set(pop_frame._REGISTRY)
+    assert len(pop_frame._REGISTRY) == 27
     for t, cls in pop_frame._REGISTRY.items():
         assert cls.__name__ == jop_frame._REGISTRY[t].__name__
     alice = tu.keypair("alice")
     op = ptx.Operation(sourceAccount=None, body=ptx.OperationBody.make(
         OT.EXTEND_FOOTPRINT_TTL, ptx.ExtendFootprintTTLOp(
             ext=pt.ExtensionPoint.make(0), extendTo=100)))
-    with pytest.raises(NotImplementedError, match="EXTEND_FOOTPRINT_TTL"):
-        tu.make_tx(alice, SEQ + 1, [op])
+    frame = tu.make_tx(alice, SEQ + 1, [op])
+    assert type(frame.op_frames[0]).__name__ == \
+        "ExtendFootprintTTLOpFrame"
 
 
 # ---------------- the corpus ----------------
