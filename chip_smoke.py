@@ -434,13 +434,59 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    close; the harness's ``close_mean_ms``, ``close_max_ms`` and
    ``txs_per_sec``; the kernels' device time (CUDA events around each
    launch), its share of the wall, and each kernel's launches and rows;
-26. fault domains, last — on the 4-index verifier: ``fail-device`` on
+26. fault domains — on the 4-index verifier: ``fail-device`` on
    index 1 quarantines only index 1 and its parts move to the survivors;
    after the backoff one probation sub-chunk heals it; ``corrupt-device``
    on index 2 is caught by the audit, which quarantines 2 for good and
    moves its parts; every verdict equals the oracle and every row is
    served by a card; then a launch fault on every index, and on a
    one-card verifier, raises.
+27. the operator surface, last — (a) ``BASELINE.json`` config 1,
+   "stellar-core standalone mode, 1 ledger close, 100-tx Payment TxSet",
+   through a node started as a user starts it, ``python -m
+   stellar_tpu_torch --conf <file> run`` in a process of its own, over a
+   database given ``vectors.operator_genesis`` (the network root holding
+   every coin), standalone with manual close, its HTTP port bound at 0
+   and read from its ``node up:`` line, the verify service on and
+   nothing else asked of the card (no ``WORKER_THREADS``: ``Application``
+   installs the device batch verifier wherever a card answers): the
+   root's transaction creating 100 accounts, then 100
+   payments from as many first-seen signers, then 100 more from the same
+   signers, each over the ``tx`` route (every answer ``PENDING``) and
+   closed on ``manualclose``; every admin route read; empty closes to
+   checkpoint 63, which the node publishes; SIGINT, exit code 0. Gates:
+   the three ledgers applied 1, 100 and 100 (the node's database); the
+   101 accounts' balances and sequence numbers the reference's
+   (``vectors.OPERATOR_STATE_DIGEST``, through ``testacc``);
+   ``dispatch`` names the device batch verifier and reads the card's
+   state; by the node's ``dispatch`` and ``metrics`` routes no row on
+   the host, 100 first sights (card rows off K2, signer-table misses)
+   then 100 table hits on K2; no service fallback, shed, rejection or
+   failure, no trickle rejection, no deadline miss, short circuit or
+   audit mismatch. (b) in this process, ``main(argv)`` of the port's
+   CLI on (a)'s files: ``self-check`` (all three state checks; its
+   benchmark the host oracle, no backend installed), ``offline-info``
+   (ledger 63 and its hash), ``dump-ledger --filter "type=='ACCOUNT'"``
+   (the pinned accounts), ``print-publish-queue`` and ``publish``;
+   ``catchup 63/complete`` into a fresh database given the same genesis
+   and (a)'s configuration, its printed hash (a)'s ledger 63's, the
+   host oracle deciding nothing (``keys._ref`` counted) and K1 launched;
+   ``apply-load --scenario close --ledgers 1 --txs 100`` with its default
+   ``--verify``, K1 or K2 launched. (c) ``BASELINE.json`` config 4 over
+   localhost sockets: ``Simulation(mode=OVER_TCP)``, 16 validators on
+   real-time clocks with the verify service, a ``CommandHandler`` on
+   node 0; every node authenticates its 15 peers, every node closes
+   each of 5 ledgers with the same hash, K1 on exactly the 16
+   validators' first sights (card rows off K2) and K2 on the rest;
+   node 0's ``peers``, ``quorum``, ``scp`` and ``info`` routes read on
+   a thread while the network cranks; node 1's last statement re-signed
+   with a flipped byte and sent to node 0 over its ``TCPPeer`` is
+   refused by the card (and the oracle), and the network closes one
+   more ledger; the same gates as phase 24's arms. Printed: (a)'s
+   start, each round's round trips and close, the routes' ms; (b)'s
+   seconds; (c)'s wall, the TCP transport's seconds (``TCPDriver.poll``
+   less the frames' handling, plus the socket writes) and share, the
+   lanes' round trips, the kernels' device time.
 
 Each kernel's launch count is set to 0 just before its path runs and read
 just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
@@ -464,9 +510,15 @@ of phase 24 (``launches_net_service`` (a), ``_trickle`` (b), ``_flood``
 CUDA events around its launches, as ``net_device_ms``), K1, K2 and K3
 over each arm of phase 25 (``launches_soroban`` (a),
 ``launches_soroban_wasm`` (b), ``launches_soroban_tamper`` (c); the
-device time of (a) and (b) as ``soroban_device_ms``). After every
-main-path
-phase the dispatch must be clean: no device fault (no retry, every
+device time of (a) and (b) as ``soroban_device_ms``), K1, K2 and K3
+over each in-process arm of phase 27 (``launches_operator_offline``,
+``_catchup`` and ``_apply_load`` for (b)'s commands, ``_tcp`` and
+``_tcp_tamper`` for (c); (c)'s device time as ``operator_device_ms``);
+(a) runs in the node's process, so its rows a kernel come from the
+node's ``dispatch`` route (``rows_operator_run``); its ``pipeline``
+route's delivered parts count the launches of all kernels together, and
+are printed in (a)'s line, not under any one kernel. After every
+main-path phase the dispatch must be clean: no device fault (no retry, every
 breaker closed and never opened), no audit mismatch, no conviction; only
 phases 16, 18 (c) and (e), and 26 expect otherwise. The
 engine has no host failover, so no row of a card is ever served by the
@@ -478,21 +530,26 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import base64
 import bisect
 import collections
 import contextlib
 import copy
 import hashlib
 import inspect
+import io
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.parse
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 try:
@@ -507,8 +564,8 @@ try:
     from stellar_tpu_torch.catchup import catchup
     from stellar_tpu_torch.crypto import ed25519_ref as ref
     from stellar_tpu_torch.crypto import (fleet, ingress, keys, native_prep,
-                                          native_verify, tenant, vectors,
-                                          verify_service)
+                                          native_verify, strkey, tenant,
+                                          vectors, verify_service)
     from stellar_tpu_torch.crypto.batch_hasher import (
         MAX_BLOCKS, MIN_DEVICE_HASH_BATCH, default_hasher, hash_many)
     from stellar_tpu_torch.crypto.batch_verifier import (
@@ -521,10 +578,14 @@ try:
     from stellar_tpu_torch.invariant.invariants import InvariantManager
     from stellar_tpu_torch.ledger import ledger_manager
     from stellar_tpu_torch.ledger.ledger_txn import LedgerTxn, key_bytes
+    from stellar_tpu_torch.main import cli as port_cli
+    from stellar_tpu_torch.main.command_handler import CommandHandler
     from stellar_tpu_torch.ops import _build
     from stellar_tpu_torch.ops import sha256 as sk
     from stellar_tpu_torch.ops import verify as vk
     from stellar_tpu_torch.overlay import overlay_manager
+    from stellar_tpu_torch.overlay.peer import Peer
+    from stellar_tpu_torch.overlay.tcp import TCPDriver, TCPPeer
     from stellar_tpu_torch.parallel import batch_engine, mesh, residency
     from stellar_tpu_torch.parallel.batch_engine import DEFAULT_BUCKET_SIZES
     from stellar_tpu_torch.parallel.signer_tables import (
@@ -826,6 +887,32 @@ SOROBAN_WASM_CLOSE_HASHES = (
 SOROBAN_WASM_META_HASH = "64164fb26f14aa73d85d993b9b5b223aafc7f29a8c1100b70781249eac9000ad"
 SOROBAN_TAMPER_CLOSE_HASH = "fa9e16832b39437aba18d2997471db7bf1d84005f22f557a8d37c6b64d9a46d2"
 SOROBAN_TAMPER_CODE = "INVOKE_HOST_FUNCTION_TRAPPED"
+# phase 27, the operator surface. (a) BASELINE.json config 1, "stellar-core
+# standalone mode, 1 ledger close, 100-tx Payment TxSet", through a node
+# started as a user starts it (``python -m stellar_tpu_torch --conf <file>
+# run``) over its database given ``vectors.operator_genesis``: the root's
+# transaction creating the 100 accounts, then two rounds of one payment
+# from each (``vectors.operator_rounds``), over its ``tx`` route, each
+# ledger closed on ``manualclose``; then empty closes to checkpoint 63,
+# which the node publishes. Its configuration asks for the verify service
+# and nothing else of the card: ``Application`` installs the device batch
+# verifier wherever a card answers, so the transactions' one-row
+# admission checks go to the card by default. No close timer fires in the arm
+# (``EXPECTED_LEDGER_CLOSE_TIME``). (b) the CLI on that node's files, in
+# this process; ``catchup 63/complete`` into a fresh database given the
+# same genesis. (c) BASELINE.json config 4 over localhost sockets,
+# ``Simulation(mode=OVER_TCP)``, each node on its real-time clock.
+OPERATOR_PASSPHRASE = "Standalone stellar_tpu Network"   # Config's default
+OPERATOR_CLOSE_TIMER_S = 3600
+OPERATOR_UP_S = 180
+OPERATOR_STOP_S = 60
+OPERATOR_ROUTES = ("info", "dispatch", "service", "metrics",
+                   "metrics?format=prometheus", "spans", "pipeline",
+                   "journal", "quorum")
+TCP_VALIDATORS = NET_VALIDATORS
+TCP_ROUNDS = NET_ROUNDS
+TCP_AUTH_TIMEOUT_S = 120
+TCP_CRANK_TIMEOUT_S = 300
 # the transfer ledger's deltas printed a call, and checked against the
 # engines' own tallies
 TRANSFER_KEYS = ("bytes_h2d", "bytes_d2h", "round_trips", "resident_hits",
@@ -4947,16 +5034,22 @@ def _network(n, accounts=None, **knobs):
     in ``app.closes``."""
     sim = vectors.core_network(n, accounts=accounts, **knobs)
     for app in sim.nodes.values():
-        app.closes, app.close_s = {}, []
-
-        def close(lcd, _app=app, _close=app.lm.close_ledger):
-            t = time.perf_counter()
-            res = _close(lcd)
-            _app.close_s.append(time.perf_counter() - t)
-            _app.closes[lcd.ledger_seq] = res.header_hash.hex()
-            return res
-        app.lm.close_ledger = close
+        _record_closes(app)
     return sim
+
+
+def _record_closes(app):
+    """``app``'s closes timed (``app.close_s``) and their header hashes
+    kept by ledger (``app.closes``)."""
+    app.closes, app.close_s = {}, []
+
+    def close(lcd, _app=app, _close=app.lm.close_ledger):
+        t = time.perf_counter()
+        res = _close(lcd)
+        _app.close_s.append(time.perf_counter() - t)
+        _app.closes[lcd.ledger_seq] = res.header_hash.hex()
+        return res
+    app.lm.close_ledger = close
 
 
 class _ArmRecord:
@@ -5895,6 +5988,647 @@ def phase_faults(v, items, want):
     return out
 
 
+def _operator_conf(path, database, bucket_dir, archive, **extra):
+    """A node's TOML: the passphrase, its files, its archive and
+    ``extra``; returns its path."""
+    lines = [f'NETWORK_PASSPHRASE = "{OPERATOR_PASSPHRASE}"',
+             f'DATABASE = "{database}"', f'BUCKET_DIR_PATH = "{bucket_dir}"',
+             f'HISTORY_ARCHIVES = ["{archive}"]']
+    lines += [f"{k} = {json.dumps(v)}" for k, v in extra.items()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+class _Node:
+    """``python -m stellar_tpu_torch --conf <conf> run`` from the
+    repository root: its standard error read on a thread (its lines
+    kept), its HTTP port from its ``node up:`` line."""
+
+    def __init__(self, conf):
+        self.lines = []
+        self._up = threading.Event()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "stellar_tpu_torch", "--conf", conf,
+             "run"], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        self._reader = threading.Thread(target=self._drain, daemon=True)
+        self._reader.start()
+
+    def _drain(self):
+        for line in self.proc.stderr:
+            self.lines.append(line)
+            if "node up:" in line:
+                self._up.set()
+        self._up.set()
+
+    def wait_up(self, timeout):
+        """The node's HTTP port once its ``node up:`` line is out, or None
+        when it exited or the time ran out."""
+        self._up.wait(timeout)
+        if self.proc.poll() is not None:
+            return None
+        line = next((ln for ln in self.lines if "node up:" in ln), None)
+        if line is None:
+            return None
+        self.port = int(line.rsplit("http port ", 1)[1].split(",")[0])
+        return self.port
+
+    def get(self, route):
+        """One admin route: its JSON, or its text."""
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/{route}",
+                                    timeout=120) as r:
+            body = r.read().decode()
+        try:
+            return json.loads(body)
+        except json.JSONDecodeError:
+            return body
+
+    def stop(self, timeout):
+        """SIGINT, as an operator stops a node; its exit code (None if it
+        did not exit in time, and then it is killed)."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
+            rc = None
+        self._reader.join(10)
+        return rc
+
+    def tail(self, n=3000):
+        return "".join(self.lines)[-n:]
+
+
+def _engine_rows(dispatch, kind="verify"):
+    """The ``kind`` engines' served rows from a ``dispatch`` body: on the
+    card (``device``), of those by K2 (``hot``), on the host (the
+    verify engines', or ``kind="hash"``: K3's)."""
+    out = collections.Counter()
+    for name, eng in dispatch["engines"].items():
+        if name.split(":", 1)[0] == kind:
+            for k in ("device", "hot", "host"):
+                out[k] += eng["served"].get(k, 0)
+    return out
+
+
+def _signer_counts(metrics):
+    """The signer-table counters from a ``metrics`` body."""
+    prefix = "crypto.verify.signer_table."
+    return {k[len(prefix):]: v["count"] for k, v in metrics.items()
+            if k.startswith(prefix)}
+
+
+def _operator_round(node, blobs, label):
+    """Each transaction over the node's ``tx`` route (every answer must be
+    ``PENDING``), then ``manualclose``: the round trips (s) and the
+    close's."""
+    trips = []
+    for raw in blobs:
+        t = time.perf_counter()
+        got = node.get("tx?blob=" + urllib.parse.quote(
+            base64.b64encode(raw).decode()))
+        trips.append(time.perf_counter() - t)
+        check(got == {"status": "PENDING"},
+              f"operator (a) {label}: a submission answered {got}")
+    seq = node.get("info")["ledger"]["num"]
+    t = time.perf_counter()
+    got = node.get("manualclose")
+    close_s = time.perf_counter() - t
+    check(got == {"ledger": seq + 1}, f"operator (a) {label}: manualclose "
+          f"answered {got} over ledger {seq}")
+    return trips, close_s
+
+
+def _trip_figures(trips):
+    ms = np.array(trips) * 1e3
+    return {"n": len(trips), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "total_s": float(ms.sum() / 1e3)}
+
+
+def _operator_run(tmp):
+    """(a): config 1 through a running node. Returns the figures, the
+    node's files and ledger 63's hash."""
+    database = os.path.join(tmp, "node.db")
+    buckets = os.path.join(tmp, "buckets")
+    archive = os.path.join(tmp, "archive")
+    t = time.perf_counter()
+    genesis = vectors.operator_genesis(database, buckets,
+                                       OPERATOR_PASSPHRASE)
+    rounds = [[to_bytes(xtx.TransactionEnvelope, f.envelope) for f in fr]
+              for fr in vectors.operator_rounds(OPERATOR_PASSPHRASE)]
+    setup_s = time.perf_counter() - t
+    conf = _operator_conf(
+        os.path.join(tmp, "node.toml"), database, buckets, archive,
+        RUN_STANDALONE=True, MANUAL_CLOSE=True, NODE_SEED="operator-node",
+        HTTP_PORT=0, MODE_AUTO_STARTS_OVERLAY=False,
+        EXPECTED_LEDGER_CLOSE_TIME=OPERATOR_CLOSE_TIMER_S,
+        VERIFY_SERVICE_ENABLED=True)
+    t = time.perf_counter()
+    node = _Node(conf)
+    out = {"setup_s": setup_s, "genesis": genesis}
+    try:
+        port = node.wait_up(OPERATOR_UP_S)
+        check(port is not None, "operator (a): the node never came up: "
+              + node.tail())
+        out["up_s"] = time.perf_counter() - t
+        info = node.get("info")
+        check(info["ledger"]["num"] == vectors.OPERATOR_GENESIS_SEQ and
+              info["ledger"]["hash"] == genesis[1],
+              f"operator (a): the node resumed at {info['ledger']}, not the "
+              f"genesis {genesis}")
+        d0 = node.get("dispatch")
+        check(d0["backend"] == "device-batch" and
+              d0["device_state"] == "cuda",
+              f"operator (a): backend {d0['backend']}, device "
+              f"{d0['device_state']}")
+        marks = [(_engine_rows(d0), _signer_counts(node.get("metrics")))]
+        rounds_out = []
+        t = time.perf_counter()
+        for label, blobs in zip(("create", "first sights", "repeats"),
+                                rounds):
+            trips, close_s = _operator_round(node, blobs, label)
+            marks.append((_engine_rows(node.get("dispatch")),
+                          _signer_counts(node.get("metrics"))))
+            rounds_out.append({"label": label, "trips": _trip_figures(trips),
+                               "close_ms": close_s * 1e3})
+        out["traffic_s"] = time.perf_counter() - t
+        out["rounds"] = rounds_out
+        deltas = []
+        for (s0, c0), (s1, c1) in zip(marks, marks[1:]):
+            deltas.append({
+                "device": s1["device"] - s0["device"],
+                "hot": s1["hot"] - s0["hot"], "host": s1["host"] - s0["host"],
+                "signer_misses": c1.get("misses", 0) - c0.get("misses", 0),
+                "signer_hits": c1.get("hits", 0) - c0.get("hits", 0),
+                "signer_installs":
+                    c1.get("installs", 0) - c0.get("installs", 0)})
+        out["served"] = dict(zip(("create", "first", "repeat"), deltas))
+        n = vectors.OPERATOR_ACCOUNTS
+        first, repeat = deltas[1], deltas[2]
+        # the card decides every signature the node checks: no row on
+        # the host; the payments' signers are first sights (K1) in the
+        # first round and table hits (K2) in the second
+        check(all(d["host"] == 0 for d in deltas), "operator (a): rows "
+              f"served on the host {deltas}")
+        check(first["device"] - first["hot"] >= n and
+              first["signer_misses"] >= n and
+              repeat["hot"] >= n and repeat["signer_hits"] >= n,
+              f"operator (a): the card's rows and the signer table's "
+              f"counters do not show {n} first sights then {n} repeats: "
+              f"{deltas}")
+        accounts = []
+        for name in [OPERATOR_PASSPHRASE] + vectors.operator_names():
+            acc = node.get("testacc?name=" + urllib.parse.quote(name))
+            accounts.append((acc["id"], acc["balance"], acc["seqnum"]))
+        digest = vectors.operator_state_digest(accounts)
+        check(digest == vectors.OPERATOR_STATE_DIGEST,
+              f"operator (a): the accounts' digest {digest} is not the "
+              "reference's")
+        routes = {}
+        for route in OPERATOR_ROUTES:
+            t = time.perf_counter()
+            body = node.get(route)
+            routes[route] = {"ms": (time.perf_counter() - t) * 1e3,
+                             "bytes": len(json.dumps(body))}
+        prom = node.get("metrics?format=prometheus")
+        check(isinstance(prom, str) and "# TYPE" in prom,
+              "operator (a): the Prometheus text is missing")
+        svc = node.get("service")
+        tot = svc.get("totals", {})
+        check(svc.get("running") is not False and
+              tot.get("shed", 0) == tot.get("rejected", 0) ==
+              tot.get("failed", 0) == 0 and
+              svc.get("conservation_gap", 0) == 0,
+              f"operator (a): the service {svc.get('running')}, totals "
+              f"{tot}, gap {svc.get('conservation_gap')}")
+        d1 = node.get("dispatch")
+        served = _engine_rows(d1)
+        out["rows"] = {
+            "verify_cold": served["device"] - served["hot"] -
+            (marks[0][0]["device"] - marks[0][0]["hot"]),
+            "verify_hot": served["hot"] - marks[0][0]["hot"],
+            "sha256": _engine_rows(d1, "hash")["device"] -
+            _engine_rows(d0, "hash")["device"]}
+        check(d1["backend"] == "device-batch" and
+              d1["deadline_misses"] == d1["short_circuits"] == 0 and
+              d1["audit"]["mismatches"] == 0,
+              f"operator (a): dispatch after the traffic {d1['backend']}, "
+              f"deadline misses {d1['deadline_misses']}, short circuits "
+              f"{d1['short_circuits']}, audit {d1['audit']}")
+        metrics = node.get("metrics")
+        fallbacks = {k: v["count"] for k, v in metrics.items()
+                     if k.startswith("crypto.verify.service.adopter_fallback")
+                     and v.get("count")}
+        rejected = metrics.get("crypto.verify.trickle.rejected",
+                               {}).get("count", 0)
+        check(not fallbacks and rejected == 0, f"operator (a): service "
+              f"fallbacks {fallbacks}, trickle rejections {rejected}")
+        out.update(routes=routes, service_totals=tot,
+                   transfer=d1.get("transfer"),
+                   pipeline=node.get("pipeline?limit=0"),
+                   audit=d1["audit"])
+        # empty closes to the checkpoint, which the node publishes
+        t = time.perf_counter()
+        while node.get("info")["ledger"]["num"] < vectors.OPERATOR_CHECKPOINT:
+            node.get("manualclose")
+        out["to_checkpoint_s"] = time.perf_counter() - t
+        info = node.get("info")["ledger"]
+        check(info["num"] == vectors.OPERATOR_CHECKPOINT,
+              f"operator (a): the node is at ledger {info['num']}")
+        last_hash = info["hash"]
+    finally:
+        rc = node.stop(OPERATOR_STOP_S)
+    check(rc == 0, f"operator (a): the node exited with {rc} on SIGINT: "
+          + node.tail())
+    db = Database(database)
+    try:
+        applied = []
+        for seq in range(vectors.OPERATOR_GENESIS_SEQ + 1,
+                         vectors.OPERATOR_GENESIS_SEQ + 4):
+            codes = [from_bytes(xresults.TransactionResult, res).result.arm
+                     for _id, _body, res in db.load_tx_history(seq)]
+            applied.append(sum(c == 0 for c in codes))
+    finally:
+        db.close()
+    check(applied == [1, vectors.OPERATOR_ACCOUNTS, vectors.OPERATOR_ACCOUNTS],
+          f"operator (a): the three ledgers applied {applied}")
+    out.update(applied=applied, ledger63=last_hash, exit_code=rc)
+    return out, (conf, database, buckets, archive)
+
+
+def _cli(argv):
+    """``stellar_tpu_torch.main.cli.main(argv)`` in this process: its exit
+    code, its standard output and its seconds."""
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = port_cli.main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _operator_cli(tmp, files, ledger63):
+    """(b): the CLI on (a)'s files; ``catchup 63/complete`` into a fresh
+    database. Returns the figures and each command's K1/K2/K3 counts."""
+    conf, _database, _buckets, archive = files
+    out, launches = {}, {}
+    _zero_counts()
+    rc, text, sec = _cli(["--conf", conf, "self-check"])
+    check(rc == 0, f"operator (b): self-check exited {rc}: {text}")
+    sc = _last_json(text)
+    st = sc["state"]
+    check(st["bucket_list_hash_ok"] and st["bucket_files_ok"] and
+          st["store_scan_ok"] and st["lcl"] == vectors.OPERATOR_CHECKPOINT,
+          f"operator (b): self-check {sc}")
+    # its benchmark is one-row verify_sig calls with no backend: the host
+    # oracle, as in the reference
+    check(keys._backend is None, "operator (b): a verify backend is "
+          "installed before self-check")
+    out["self_check"] = dict(sc, seconds=sec)
+    rc, text, sec = _cli(["--conf", conf, "offline-info"])
+    info = json.loads(text)
+    check(rc == 0 and info["ledger"]["seq"] == vectors.OPERATOR_CHECKPOINT
+          and info["ledger"]["hash"] == ledger63,
+          f"operator (b): offline-info {rc} {info.get('ledger')}")
+    out["offline_info_s"] = sec
+    rc, text, sec = _cli(["--conf", conf, "dump-ledger", "--filter",
+                          "type=='ACCOUNT'"])
+    accounts = []
+    for line in text.splitlines():
+        e = from_bytes(xt.LedgerEntry,
+                       bytes.fromhex(json.loads(line)["entry"]))
+        accounts.append((strkey.encode_account(e.data.value.accountID.value),
+                         e.data.value.balance, e.data.value.seqNum))
+    digest = vectors.operator_state_digest(accounts)
+    check(rc == 0 and len(accounts) == vectors.OPERATOR_ACCOUNTS + 1 and
+          digest == vectors.OPERATOR_STATE_DIGEST,
+          f"operator (b): dump-ledger {rc}, {len(accounts)} accounts, "
+          f"digest {digest}")
+    out["dump_ledger_s"] = sec
+    rc, text, _ = _cli(["--conf", conf, "print-publish-queue"])
+    queue = json.loads(text)["queue"]
+    check(rc == 0, f"operator (b): print-publish-queue exited {rc}")
+    rc, text, sec = _cli(["--conf", conf, "publish"])
+    published = json.loads(text)
+    check(rc == 0, f"operator (b): publish exited {rc}")
+    check(published["published_checkpoints"] == queue,
+          f"operator (b): queue {queue}, published {published}")
+    out["publish"] = {"queue": queue, **published, "seconds": sec}
+    launches["offline"] = _counts()
+    # the catchup: a fresh database given the same genesis, the node's
+    # configuration, so that Application installs the device batch
+    # verifier as it does wherever a card answers; every decision
+    # counted at the host oracle
+    fresh = os.path.join(tmp, "fresh")
+    os.makedirs(fresh)
+    genesis = vectors.operator_genesis(
+        os.path.join(fresh, "node.db"), os.path.join(fresh, "buckets"),
+        OPERATOR_PASSPHRASE)
+    conf2 = _operator_conf(
+        os.path.join(fresh, "node.toml"), os.path.join(fresh, "node.db"),
+        os.path.join(fresh, "buckets"), archive,
+        VERIFY_SERVICE_ENABLED=True)
+    keys.flush_verify_cache()
+    signer_table_cache._reset_for_testing()
+    oracle = _CountingOracle(keys._ref)
+    _zero_counts()
+    with _Wrapped((keys, "_ref", lambda module: oracle)):
+        rc, text, sec = _cli(["--conf", conf2, "catchup",
+                              f"{vectors.OPERATOR_CHECKPOINT}/complete"])
+    launches["catchup"] = _counts()
+    backend = keys.get_verifier_backend_name()
+    res = _last_json(text)
+    check(rc == 0 and res["state"] == "SUCCESS" and
+          res["ledger"] == vectors.OPERATOR_CHECKPOINT and
+          res["hash"] == ledger63,
+          f"operator (b): catchup exited {rc}: {res}, not ledger 63 "
+          f"{ledger63}")
+    check(oracle.calls == 0 and backend == "device-batch",
+          f"operator (b): the host oracle decided {oracle.calls} "
+          f"signatures of the replay; backend {backend}")
+    check(launches["catchup"]["verify_cold"] > 0,
+          f"operator (b): the replay launched no K1 {launches['catchup']}")
+    out["catchup"] = {"seconds": sec, "genesis": genesis, **res,
+                      "oracle_calls": oracle.calls, "backend": backend}
+    _stop_process_state()
+    _zero_counts()
+    rc, text, sec = _cli(["apply-load", "--scenario", "close", "--ledgers",
+                          "1", "--txs", "100"])
+    launches["apply_load"] = _counts()
+    stats = _last_json(text)
+    # its default --verify picks the card wherever one answers
+    backend = keys.get_verifier_backend_name()
+    check(rc == 0 and backend == "device-batch" and
+          launches["apply_load"]["verify_cold"] +
+          launches["apply_load"]["verify_hot"] > 0,
+          f"operator (b): apply-load {rc} {stats}, backend {backend}, "
+          f"launches {launches['apply_load']}")
+    out["apply_load"] = dict(stats, seconds=sec, backend=backend)
+    _stop_process_state()
+    return out, launches
+
+
+class _TransportClock:
+    """Seconds in the TCP transport: ``TCPDriver.poll`` (the selector,
+    the socket reads and the framing) less ``Peer.receive_bytes`` (the
+    handling of each received frame), plus ``TCPPeer.send_bytes`` (the
+    socket writes, wherever called)."""
+
+    def __init__(self):
+        self.s = collections.Counter()
+
+    def _timed(self, key):
+        def wrap(fn):
+            def timed(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.s[key] += time.perf_counter() - t
+            return timed
+        return wrap
+
+    def wrapped(self):
+        return _Wrapped((TCPDriver, "poll", self._timed("poll")),
+                        (Peer, "receive_bytes", self._timed("receive")),
+                        (TCPPeer, "send_bytes", self._timed("send")))
+
+    def transport_s(self):
+        return self.s["poll"] - self.s["receive"] + self.s["send"]
+
+
+def _routes_off_crank(sim, handler, routes):
+    """The handler's routes read on a thread while this one cranks the
+    network (a route runs on its node's crank)."""
+    got, done = {}, threading.Event()
+
+    def read():
+        try:
+            for route in routes:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{handler.port}/{route}",
+                        timeout=60) as r:
+                    got[route] = json.loads(r.read())
+        except Exception as e:  # reported by the gate below
+            got["error"] = repr(e)
+        done.set()
+    threading.Thread(target=read, daemon=True).start()
+    sim.crank_until(done.is_set, 120)
+    check(done.is_set() and "error" not in got,
+          f"operator (c): the routes {got.get('error', 'timed out')}")
+    return got
+
+
+def _tcp_tamper(sim, apps, rec):
+    """Node 1's last statement re-signed with one signature byte flipped,
+    sent to node 0 as an SCP message over node 1's ``TCPPeer`` (the
+    frame's MAC computed over the tampered envelope): node 0's scp lane
+    takes it to the card, which refuses it."""
+    a0, a1 = apps[0], apps[1]
+    id0 = a0.config.NODE_SEED.public_key.raw
+    slot = max(a1.herder.scp.known_slots)
+    mine = [st for st, _v in a1.herder.scp.known_slots[slot]
+            .statements_history
+            if st.nodeID.value == a1.config.NODE_SEED.public_key.raw]
+    st = mine[-1]
+    payload = herder_mod.scp_envelope_sign_payload(
+        a1.config.network_id(), st)
+    sig = bytearray(a1.config.NODE_SEED.sign(payload))
+    sig[7] ^= 0x20
+    triple = (a1.config.NODE_SEED.public_key.raw, payload, bytes(sig))
+    peer = next(p for p in a1.overlay.peers if p.remote_node_id == id0)
+    check(isinstance(peer, TCPPeer), f"operator (c): node 1's peer is "
+          f"{type(peer).__name__}")
+    scp0 = len(rec.trips["scp"])
+    peer.send(StellarMessage.make(MessageType.SCP_MESSAGE, SCPEnvelope(
+        statement=st, signature=bytes(sig))))
+    check(sim.crank_until(lambda: triple in rec.triples, 60),
+          "operator (c): the tampered envelope never reached a verifier")
+    verdict = rec.triples[triple]
+    check(verdict is False and ref.verify(*triple) is False,
+          f"operator (c): the card's verdict on the tampered envelope "
+          f"{verdict}")
+    return {"slot": slot, "verdict": verdict,
+            "scp_round_trips": len(rec.trips["scp"]) - scp0}
+
+
+def _operator_tcp():
+    """(c): config 4 over TCP on the verify service, a ``CommandHandler``
+    on node 0, then the tampered envelope and one more ledger."""
+    keys.flush_verify_cache()
+    signer_table_cache._reset_for_testing()
+    fallback0 = _fallbacks()
+    rec = _ArmRecord()
+    clock = _TransportClock()
+    served0 = _engine_rows({"engines": batch_engine.dispatch_health()[
+        "engines"]})
+    _zero_counts()
+    spans0 = tracing.span_totals()
+    out = {}
+    with rec.wrapped(), clock.wrapped():
+        t = time.perf_counter()
+        sim = vectors.core_network(TCP_VALIDATORS, mode=Simulation.OVER_TCP,
+                                   VERIFY_SERVICE_ENABLED=True)
+        apps = list(sim.nodes.values())
+        for app in apps:
+            _record_closes(app)
+        handler = CommandHandler(apps[0], port=0)
+        try:
+            out["build_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            check(sim.crank_until(lambda: all(
+                a.overlay.authenticated_count() >= TCP_VALIDATORS - 1
+                for a in apps), TCP_AUTH_TIMEOUT_S),
+                "operator (c): the mesh never authenticated "
+                f"{[a.overlay.authenticated_count() for a in apps]}")
+            out["auth_s"] = time.perf_counter() - t
+            sim.start_all_nodes()
+            rec.start_window()
+            clock.s.clear()
+            start = max(a.lm.ledger_seq for a in apps)
+            last = start + TCP_ROUNDS
+            t = time.perf_counter()
+            check(sim.crank_until_ledger(last, TCP_CRANK_TIMEOUT_S),
+                  f"operator (c): ledger {last} not reached "
+                  f"{[a.lm.ledger_seq for a in apps]}")
+            wall_s = time.perf_counter() - t
+            blocked_s = rec.blocked_s()
+            transport_s = clock.transport_s()
+            transport = dict(clock.s)
+            statements = sum(len(slot.statements_history) for a in apps
+                             for slot in a.herder.scp.known_slots.values())
+            distinct = keys.get_verify_cache_stats()["size"]
+            launches = _counts()
+            spans = _engine_spans(spans0, tracing.span_totals())
+            kernels = rec.kernel_time(wall_s)
+            served = _engine_rows({"engines": batch_engine.dispatch_health()[
+                "engines"]})
+            routes = _routes_off_crank(sim, handler,
+                                       ("peers", "quorum", "scp", "info"))
+            _zero_counts()
+            tamper = _tcp_tamper(sim, apps, rec)
+            seq = max(a.lm.ledger_seq for a in apps)
+            check(sim.crank_until_ledger(seq + 1, TCP_CRANK_TIMEOUT_S),
+                  f"operator (c): ledger {seq + 1} not reached after the "
+                  "tampered envelope")
+            tamper["launches"] = _counts()
+            svc_snap = verify_service.running_service().snapshot()
+        finally:
+            handler.stop()
+            sim.close()
+    # every node closed every ledger of the arm with the same hash
+    ledgers = range(start + 1, last + 1)
+    split = {seq: sorted({a.closes.get(seq) for a in apps},
+                         key=str) for seq in ledgers}
+    check(all(len(h) == 1 and h[0] is not None for h in split.values()),
+          f"operator (c): the nodes disagree or missed a ledger {split}")
+    peers = routes["peers"]["authenticated_peers"]
+    check(len(peers) == TCP_VALIDATORS - 1 and
+          all(p["authenticated"] for p in peers),
+          f"operator (c): node 0's peers route {peers}")
+    q = routes["quorum"]
+    check(q["threshold"] == TCP_VALIDATORS - (TCP_VALIDATORS - 1) // 3 and
+          len(q["validators"]) == TCP_VALIDATORS,
+          f"operator (c): node 0's quorum route {q}")
+    check(str(last) in routes["scp"] and
+          routes["info"]["peers"]["authenticated_count"] ==
+          TCP_VALIDATORS - 1,
+          f"operator (c): node 0's scp route {sorted(routes['scp'])}, info "
+          f"{routes['info']['peers']}")
+    cold_rows = (served["device"] - served["hot"]) - \
+        (served0["device"] - served0["hot"])
+    check(0 < launches["verify_cold"] <= TCP_VALIDATORS and
+          cold_rows == TCP_VALIDATORS and launches["verify_hot"] > 0,
+          f"operator (c): launches {launches}, K1 rows {cold_rows}: not one "
+          f"first sight a validator, then K2")
+    gates = _arm_gates("operator (c)", rec, fallback0, svc_snap=svc_snap)
+    out.update({"wall_s": wall_s, "ledgers": f"{start + 1}-{last}",
+                "rounds_per_s": TCP_ROUNDS / wall_s,
+                "transport_s": transport_s,
+                "transport_share": transport_s / wall_s,
+                "poll_s": transport["poll"],
+                "receive_s": transport["receive"],
+                "send_s": transport["send"], "blocked_s": blocked_s,
+                "statements": statements,
+                "distinct_triples": distinct,
+                "trips": rec.figures(), "launches": launches,
+                "kernels": kernels, "engine_spans_ms": spans,
+                "cold_rows": cold_rows,
+                "lanes": _lane_figures(svc_snap), "tamper": tamper,
+                "routes": {"scp_slots": sorted(routes["scp"], key=int),
+                           "quorum_threshold": q["threshold"],
+                           "peers": len(peers)}, **gates})
+    _stop_process_state()
+    return out
+
+
+def phase_operator(info):
+    """Phase 27: the operator surface. (a) config 1 through a node
+    started as ``python -m stellar_tpu_torch --conf <file> run``, (b) the
+    CLI on its files in this process, (c) config 4 over TCP. Each arm's
+    K1, K2 and K3 counts are set to 0 just before it and read just after
+    ((a)'s come from the node's routes: it runs in a process of its own);
+    the process-wide state each arm starts is stopped before the next."""
+    t0 = time.perf_counter()
+    before = _process_state()
+    _stop_process_state()
+    check(batch_engine.device_available(block=True),
+          "operator: the device probe did not answer")
+    res = {"card": info["smi"], "state_before": before}
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="operator-")
+    try:
+        a, files = _operator_run(tmp)
+        res["a"] = a
+        r = a["rounds"]
+        print(f"[operator] (a) config 1 through `python -m stellar_tpu_torch "
+              f"run`: up {a['up_s']:.3f} s (genesis and signing "
+              f"{a['setup_s']:.3f} s); " + "; ".join(
+                  f"{x['label']}: {x['trips']['n']} submissions p50 "
+                  f"{x['trips']['p50_ms']:.3f} ms, p99 "
+                  f"{x['trips']['p99_ms']:.3f} ms, close "
+                  f"{x['close_ms']:.3f} ms" for x in r)
+              + f"; applied {a['applied']}; to checkpoint 63 "
+              f"{a['to_checkpoint_s']:.3f} s; served by the card "
+              f"{a['served']}; routes {a['routes']}; pipeline parts of "
+              f"all kernels together {a['pipeline'].get('parts')}; accounts the reference's; "
+              f"exit {a['exit_code']} on SIGINT")
+        b, launches_b = _operator_cli(tmp, files, a["ledger63"])
+        res["b"] = b
+        launches.update({f"cli_{k}": v for k, v in launches_b.items()})
+        print(f"[operator] (b) the CLI on (a)'s files: self-check "
+              f"{b['self_check']}; publish {b['publish']}; catchup "
+              f"63/complete {b['catchup']['seconds']:.3f} s, hash "
+              f"{b['catchup']['hash']} (ledger 63's), oracle 0, launches "
+              f"{launches_b['catchup']}; apply-load {b['apply_load']}, "
+              f"launches {launches_b['apply_load']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    c = _operator_tcp()
+    res["c"] = c
+    launches["tcp"] = c["launches"]
+    launches["tcp_tamper"] = c["tamper"]["launches"]
+    _arm_line("operator (c) config 4 over TCP", c)
+    print(f"[operator] (c) transport {c['transport_s']:.3f} s, "
+          f"{c['transport_share']:.2%} of the wall (poll {c['poll_s']:.3f} "
+          f"s, frames handled {c['receive_s']:.3f} s, sends "
+          f"{c['send_s']:.3f} s); K1 rows {c['cold_rows']}; lanes "
+          f"{c['lanes']}; routes {c['routes']}; tampered envelope "
+          f"{c['tamper']}")
+    check_dispatch_clean([default_verifier(), default_hasher()], "operator")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[operator] phase {res['seconds']:.1f} s; card {info['smi']}")
+    return res, launches
+
+
 def source_line(fn):
     """``path:line`` of ``fn``'s ``def``, the path from the repository
     root."""
@@ -5935,6 +6669,16 @@ NET_COUNTS = {"a": "launches_net_service", "b": "launches_net_trickle",
               "c": "launches_net_flood", "d": "launches_net_tamper"}
 SOROBAN_COUNTS = {"a": "launches_soroban", "b": "launches_soroban_wasm",
                   "c": "launches_soroban_tamper"}
+# phase 27's in-process arms: (b)'s offline commands, catchup and
+# apply-load, (c) config 4 over TCP and its tampered envelope; (a) runs in
+# the node's own process, so its rows come from the node's ``dispatch``
+# route (``rows_operator_run``); its ``pipeline`` parts, the launches of
+# every kernel together, are printed in (a)'s line
+OPERATOR_COUNTS = {"cli_offline": "launches_operator_offline",
+                   "cli_catchup": "launches_operator_catchup",
+                   "cli_apply_load": "launches_operator_apply_load",
+                   "tcp": "launches_operator_tcp",
+                   "tcp_tamper": "launches_operator_tcp_tamper"}
 
 
 def _arm_counts(launches, kernel, names):
@@ -6023,6 +6767,8 @@ def main() -> int:
     net, net_launches = phase_node_network(info)
     soroban, soroban_launches = phase_soroban(info)
     fault_domains = phase_faults(split_v, txset_items, txset_want)
+    operator, operator_launches = phase_operator(info)
+    operator_rows = operator["a"]["rows"]
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
           f"{k2_txset / hot_txset['p50_ms']:.1%} of the hot TxSet p50")
@@ -6055,6 +6801,11 @@ def main() -> int:
                                    SOROBAN_COUNTS),
                      **_arm_device_ms(soroban, "verify_cold", ("a", "b"),
                                       "soroban_device_ms"),
+                     **_arm_counts(operator_launches, "verify_cold",
+                                   OPERATOR_COUNTS),
+                     **_arm_device_ms(operator, "verify_cold", ("c",),
+                                      "operator_device_ms"),
+                     rows_operator_run=operator_rows["verify_cold"],
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -6076,6 +6827,11 @@ def main() -> int:
                                    SOROBAN_COUNTS),
                      **_arm_device_ms(soroban, "verify_hot", ("a", "b"),
                                       "soroban_device_ms"),
+                     **_arm_counts(operator_launches, "verify_hot",
+                                   OPERATOR_COUNTS),
+                     **_arm_device_ms(operator, "verify_hot", ("c",),
+                                      "operator_device_ms"),
+                     rows_operator_run=operator_rows["verify_hot"],
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -6097,6 +6853,11 @@ def main() -> int:
                                    SOROBAN_COUNTS),
                      **_arm_device_ms(soroban, "sha256", ("a", "b"),
                                       "soroban_device_ms"),
+                     **_arm_counts(operator_launches, "sha256",
+                                   OPERATOR_COUNTS),
+                     **_arm_device_ms(operator, "sha256", ("c",),
+                                      "operator_device_ms"),
+                     rows_operator_run=operator_rows["sha256"],
                      **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
@@ -6131,7 +6892,7 @@ def main() -> int:
         "fleet": fleet_res, "node": node, "node_txset": node_txset,
         "node_close": node_close, "catchup_chain": chain,
         "node_network": net, "soroban": soroban,
-        "fault_domains": fault_domains,
+        "fault_domains": fault_domains, "operator": operator,
         "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,13 @@ oracle (:mod:`stellar_tpu_torch.crypto.ed25519_ref`).
 * :func:`soroban_tamper_accounts`, :func:`soroban_tamper_config`,
   :func:`soroban_tamper_envelopes` — the counter contract deployed and
   invoked by ten sources, one auth entry's signature with a byte
-  flipped.
+  flipped;
+* :func:`operator_genesis`, :func:`operator_rounds`,
+  :func:`operator_state_digest` — a standalone node's genesis written
+  into its database (the network root holding every coin), the
+  transactions a running node takes over its ``tx`` route (one creating
+  the accounts, then two rounds of one payment from each), and the
+  digest of the accounts' balances and sequence numbers after them.
 """
 
 from __future__ import annotations
@@ -821,19 +827,21 @@ def flood_envelopes(n: int, network_id: bytes) -> list:
         for name in flood_sources(n)]))
 
 
-def core_network(n: int, threshold=None, accounts=None, **knobs):
+def core_network(n: int, threshold=None, accounts=None, mode=None,
+                 **knobs):
     """``Topologies.core(n)``: ``n`` validators with keys
     ``SecretKey.from_seed_str("sim-node-i")``, one quorum set of all of
     them (threshold ``n - (n - 1) // 3`` unless given), fully connected
-    over loopback. Each node is added through ``Simulation.add_node``
-    with a ``Config`` of its own: ``knobs`` set and
-    ``QUORUM_INTERSECTION_CHECKER`` off, as ``Simulation.add_node`` sets
-    for its default. Returns the ``Simulation``."""
+    over loopback, or over localhost sockets with ``mode``
+    ``Simulation.OVER_TCP``. Each node is added through
+    ``Simulation.add_node`` with a ``Config`` of its own: ``knobs`` set
+    and ``QUORUM_INTERSECTION_CHECKER`` off, as ``Simulation.add_node``
+    sets for its default. Returns the ``Simulation``."""
     from stellar_tpu_torch.main.config import Config
     from stellar_tpu_torch.scp.quorum import make_node_id
     from stellar_tpu_torch.simulation.simulation import Simulation
     from stellar_tpu_torch.xdr.scp import SCPQuorumSet
-    sim = Simulation()
+    sim = Simulation(mode=mode or Simulation.OVER_LOOPBACK)
     node_keys = [SecretKey.from_seed_str(f"sim-node-{i}") for i in range(n)]
     qset = SCPQuorumSet(
         threshold=threshold if threshold is not None else n - (n - 1) // 3,
@@ -990,3 +998,99 @@ def soroban_tamper_envelopes(network_id: bytes,
                [to_bytes(xtx.TransactionEnvelope, create.envelope)],
                invokes]
     return ledgers, bad
+
+
+# ---------------- a standalone node taking config 1 ----------------
+
+# The reference's ``Application`` starts from an empty ledger: it has no
+# genesis account. :func:`operator_genesis` gives a node's database one,
+# the network root (``SecretKey.from_seed_str(passphrase)``, stellar-core's
+# root key) holding every coin at ledger 2, and closes ledger 3, empty, at
+# a fixed time; two databases so written hold the same chain, so one
+# catches up (``catchup <ledger>/complete``) on what the other closed.
+OPERATOR_ACCOUNTS = 100
+OPERATOR_BALANCE = 10_000 * 10_000_000     # 10,000 XLM an account
+OPERATOR_TOTAL_COINS = 100_000_000_000 * 10_000_000
+OPERATOR_GENESIS_SEQ = 3                    # the genesis's one close
+OPERATOR_MAX_TX_SET_SIZE = 1000
+OPERATOR_CHECKPOINT = 63
+# the two payment rounds: each account pays the one ``step`` places on,
+# ``(i + 1) * unit`` stroops
+OPERATOR_ROUNDS = ((1, 1_000_000), (37, 3_000_000))
+# SHA-256 of the 101 accounts' ``strkey:balance:seqNum`` lines, sorted,
+# after the three transaction ledgers: the reference's closes of
+# :func:`operator_rounds` over :func:`operator_genesis`'s ledger
+# (tests/test_torch_cli.py recomputes it with both packages)
+OPERATOR_STATE_DIGEST = ("fa99a087b89503c2a1670df0ef622e36"
+                         "f4ff2e7a520375062eec27c52f5f8e41")
+
+
+def operator_names(n: int = OPERATOR_ACCOUNTS) -> list:
+    """The names of the ``n`` accounts the root creates (each account's
+    key is ``SecretKey.from_seed_str(name)``, as the ``testacc`` route
+    finds it)."""
+    return [f"operator-{i}" for i in range(n)]
+
+
+def operator_genesis(database: str, bucket_dir: str, passphrase: str,
+                     protocol: int = CURRENT_LEDGER_PROTOCOL_VERSION):
+    """Writes the genesis into a fresh database and bucket directory:
+    the network root's account at ledger 2 and one empty close, ledger
+    3, at ``seed_root_with_accounts``' time plus 5. Returns the ledger's
+    sequence number and header hash (hex)."""
+    from stellar_tpu_torch.bucket.bucket_manager import BucketManager
+    from stellar_tpu_torch.database import Database, NodePersistence
+    from stellar_tpu_torch.herder.tx_set import make_tx_set_from_transactions
+    from stellar_tpu_torch.ledger.ledger_manager import (LedgerCloseData,
+                                                         LedgerManager)
+    from stellar_tpu_torch.tx.tx_test_utils import seed_root_with_accounts
+    db = Database(database)
+    try:
+        root = seed_root_with_accounts(
+            [(SecretKey.from_seed_str(passphrase), OPERATOR_TOTAL_COINS)])
+        header = root.header()
+        header.ledgerVersion = protocol
+        header.maxTxSetSize = OPERATOR_MAX_TX_SET_SIZE
+        lm = LedgerManager(sha256(passphrase.encode()), root,
+                           persistence=NodePersistence(
+                               db, BucketManager(bucket_dir)))
+        lcl = lm.last_closed_header
+        tx_set, _ = make_tx_set_from_transactions([], lcl,
+                                                  lm.last_closed_hash)
+        lm.close_ledger(LedgerCloseData(
+            ledger_seq=lcl.ledgerSeq + 1, tx_set=tx_set,
+            close_time=lcl.scpValue.closeTime + 5))
+        return lm.ledger_seq, lm.last_closed_hash.hex()
+    finally:
+        db.close()
+
+
+def operator_rounds(passphrase: str, n: int = OPERATOR_ACCOUNTS) -> list:
+    """The transaction frames a node over :func:`operator_genesis` takes,
+    a ledger each: the root's one transaction creating the ``n``
+    accounts with ``OPERATOR_BALANCE`` each (ledger 4), then for each of
+    ``OPERATOR_ROUNDS`` one payment from every account (ledgers 5 and 6;
+    an account's sequence numbers start at 4 << 32)."""
+    from stellar_tpu_torch.tx.tx_test_utils import (create_account_op,
+                                                    make_tx, payment_op)
+    network_id = sha256(passphrase.encode())
+    root = SecretKey.from_seed_str(passphrase)
+    keys = [_named(name) for name in operator_names(n)]
+    out = [[make_tx(root, (1 << 32) + 1,
+                    [create_account_op(k, OPERATOR_BALANCE) for k in keys],
+                    network_id=network_id)]]
+    base = (OPERATOR_GENESIS_SEQ + 1) << 32
+    for r, (step, unit) in enumerate(OPERATOR_ROUNDS, start=1):
+        out.append([make_tx(k, base + r,
+                            [payment_op(keys[(i + step) % n],
+                                        (i + 1) * unit)],
+                            network_id=network_id)
+                    for i, k in enumerate(keys)])
+    return out
+
+
+def operator_state_digest(accounts) -> str:
+    """SHA-256 (hex) of ``strkey:balance:seqNum`` lines, sorted, one for
+    each ``(strkey, balance, seq_num)`` of ``accounts``."""
+    lines = sorted(f"{k}:{b}:{q}" for k, b, q in accounts)
+    return sha256("\n".join(lines).encode()).hex()

@@ -351,18 +351,21 @@ class Application:
         elif config.VERIFY_SERVICE_ENABLED:
             from stellar_tpu_torch.crypto import verify_service
             verify_service.default_service()
-        # worker pool active => verify callers are concurrent (overlay
-        # pre-verify, threaded replay): put the device batch verifier
-        # behind a trickle window by default (a policy, not just a
-        # class). Never clobbers an explicitly-installed
-        # backend, installs once per process.
-        if config.WORKER_THREADS > 0 and config.DEVICE_BATCH_VERIFY:
+        # the card is the default wherever one answers the probe: the
+        # device batch verifier decides single signatures too, whatever
+        # the worker pool. A worker pool makes verify callers concurrent
+        # (overlay pre-verify, threaded replay), so it puts the verifier
+        # behind a trickle window; a single-threaded node calls it
+        # directly. Never clobbers an explicitly-installed backend,
+        # installs once per process.
+        if config.DEVICE_BATCH_VERIFY:
             from stellar_tpu_torch.crypto import batch_verifier, keys
             if keys._backend is None and \
                     batch_verifier.device_available():
                 window = config.TRICKLE_VERIFY_WINDOW_MS
                 batch_verifier.default_verifier().install(
-                    trickle_window_ms=window if window > 0 else None)
+                    trickle_window_ms=window if window > 0 and
+                    config.WORKER_THREADS > 0 else None)
         # logging sinks (reference LOG_FILE_PATH / LOG_COLOR)
         if config.LOG_FILE_PATH:
             import logging

@@ -30,12 +30,15 @@ PARTIAL = {
     "soroban/native_wasm.py": {"_LIB", "_ext_lib_path", "_build_lib"},
     "main/application.py": {
         "Application._apply_global_config", "Application._verify_health"},
+    "main/fuzz.py": {"WasmFuzzer.__init__"},
+    "main/cli.py": {"cmd_apply_load"},
 }
 
 # The partial copies that define every name of their ``PARTIAL`` entry
 # anew, the port's own version in place of the reference's (ROADMAP.md's
 # divergences say why); those names are taken out of both sides.
-REPLACED = {"main/application.py", "soroban/native_wasm.py"}
+REPLACED = {"main/application.py", "main/cli.py", "main/fuzz.py",
+            "soroban/native_wasm.py"}
 
 
 class _Normalize(ast.NodeTransformer):

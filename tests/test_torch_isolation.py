@@ -3,6 +3,7 @@ it plugs into the node's verify seam (``stellar_tpu.crypto.keys``) from the
 outside. Only tests import both packages."""
 
 import ast
+import json
 import os
 import re
 import subprocess
@@ -83,10 +84,16 @@ SOROBAN_MODULES = (
     "soroban.example_contracts", "tx.ops.soroban_ops",
     "simulation.load_generator")
 
+# the operator surface: the TCP transport, the CLI and its offline
+# commands, the admin routes, the fuzzers and the entry point
+OPERATOR_MODULES = (
+    "overlay.tcp", "utils.xdrquery", "main.settings_upgrade",
+    "main.command_handler", "main.fuzz", "main.cli_offline", "main.cli",
+    "__main__")
+
 # modules the port names in a late import but lacks, each waiting for a
-# later slice (ROADMAP.md's known gaps): the TCP transport the
-# simulation reaches in its OVER_TCP mode
-KNOWN_GAPS = ("stellar_tpu_torch.overlay.tcp",)
+# later slice (ROADMAP.md's known gaps): none
+KNOWN_GAPS = ()
 
 
 def test_forbidden_imports_absent():
@@ -111,7 +118,7 @@ def test_forbidden_imports_absent():
         assert os.path.join(ROOT, "stellar_tpu_torch",
                             f"{module}.py") in files
     for module in (NODE_MODULES + CLOSE_MODULES + CATCHUP_MODULES +
-                   NETWORK_MODULES + SOROBAN_MODULES):
+                   NETWORK_MODULES + SOROBAN_MODULES + OPERATOR_MODULES):
         assert _module_path("stellar_tpu_torch." + module) in files, module
     for path in files:
         with open(path) as f:
@@ -846,6 +853,30 @@ def test_every_port_import_resolves_but_the_known_gaps():
         roadmap = f.read()
     for name in KNOWN_GAPS:
         assert name.replace("stellar_tpu_torch.", "") in roadmap, name
+
+
+def test_entry_point_with_jax_blocked():
+    """``python -m stellar_tpu_torch version`` in a fresh interpreter in
+    which importing jax or stellar_tpu fails: the port's CLI runs, and
+    prints its version line; the CLI, the offline commands, the admin
+    routes, the fuzzers and the TCP transport import there too."""
+    code = "\n".join([
+        "import runpy, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['stellar_tpu'] = None",
+        "import importlib",
+        f"for m in {OPERATOR_MODULES[:-1]!r}:",
+        "    importlib.import_module('stellar_tpu_torch.' + m)",
+        "sys.argv = ['stellar_tpu_torch', 'version']",
+        "runpy.run_module('stellar_tpu_torch', run_name='__main__')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    from stellar_tpu_torch.protocol import CURRENT_LEDGER_PROTOCOL_VERSION
+    assert out == {"stellar_tpu": "0.1.0", "ledger_protocol_version":
+                   CURRENT_LEDGER_PROTOCOL_VERSION}
 
 
 def test_node_verify_seam():

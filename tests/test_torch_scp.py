@@ -8,7 +8,8 @@ The copies are held to the reference's source (``_torch_port.check_copy``);
 ``main/application.py`` is the one partial copy: its
 ``_apply_global_config`` and ``_verify_health`` are the port's own, and the
 rest of ``_apply_global_config`` equals the reference's statement for
-statement. Networks of the port's ``Application`` s (two nodes at
+statement; where a card answers, it puts the card behind ``verify_sig``
+whatever the worker pool. Networks of the port's ``Application`` s (two nodes at
 threshold 2, ``core4``, and 16 validators for two ledgers) close the same
 header hashes, ledger by ledger, and exchange the same SCP statements,
 slot by slot, as the reference's from the same seeds. ``Config`` loads the
@@ -107,16 +108,51 @@ def test_apply_global_config_is_the_reference_but_for_dispatch():
     """The port's ``_apply_global_config`` is the reference's statement
     for statement once every statement that names a dispatch knob (the
     reference's one ``configure_dispatch`` block, the port's blocks per
-    owner) is taken out of both."""
+    owner) is taken out of both, and the one statement that installs the
+    device batch verifier: the reference's installs it only with a worker
+    pool, the port's wherever a card answers."""
     ref_path, port_path = module_paths("main/application.py")
-    bodies = []
+    bodies, installs = [], []
     for path in (ref_path, port_path):
         fn = _method(normalized(path), "Application", "_apply_global_config")
-        kept = [st for st in fn.body
-                if not any(k in ast.dump(st) for k in DISPATCH_KNOBS)]
+        install = [st for st in fn.body
+                   if "default_verifier" in ast.dump(st)]
+        kept = [st for st in fn.body if st not in install and
+                not any(k in ast.dump(st) for k in DISPATCH_KNOBS)]
         bodies.append([ast.dump(st) for st in kept])
+        installs.append(install)
     assert bodies[0] == bodies[1]
     assert len(bodies[0]) > 20
+    assert [len(i) for i in installs] == [1, 1]
+    assert "WORKER_THREADS" in ast.dump(installs[0][0].test)
+    assert "WORKER_THREADS" not in ast.dump(installs[1][0].test)
+
+
+@pytest.mark.parametrize("workers,backend", [
+    (0, "device-batch"), (2, "device-batch+trickle")])
+def test_application_puts_the_card_behind_verify_sig_by_default(
+        monkeypatch, workers, backend):
+    """Wherever a card answers the probe, the port's ``Application``
+    installs the device batch verifier as ``verify_sig``'s backend with
+    the default configuration, behind a trickle window only with a
+    worker pool; with no card it installs nothing. Nothing launches: the
+    probe's answer is patched, the verifier is one on the CPU and no
+    signature is checked."""
+    from stellar_tpu_torch.crypto import batch_verifier
+    verifier = batch_verifier.BatchVerifier(device="cpu")
+    monkeypatch.setattr(batch_verifier, "default_verifier",
+                        lambda device=None: verifier)
+    PORT.keys.set_verifier_backend(None)
+    cfg = PORT.config.Config()
+    cfg.WORKER_THREADS = workers
+    monkeypatch.setattr(batch_verifier, "device_available", lambda: False)
+    papp.Application(cfg)
+    assert PORT.keys._backend is None
+    monkeypatch.setattr(batch_verifier, "device_available", lambda: True)
+    papp.Application(cfg)
+    assert PORT.keys.get_verifier_backend_name() == backend
+    owner = PORT.keys._backend.__self__
+    assert getattr(owner, "_verifier", owner) is verifier
 
 
 def _network_run(side, n, threshold, ledgers):
