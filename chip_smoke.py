@@ -486,7 +486,22 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    start, each round's round trips and close, the routes' ms; (b)'s
    seconds; (c)'s wall, the TCP transport's seconds (``TCPDriver.poll``
    less the frames' handling, plus the socket writes) and share, the
-   lanes' round trips, the kernels' device time.
+   lanes' round trips, the kernels' device time;
+28. the analysis on the card's machine — (a) ``python -m
+   stellar_tpu_torch.tools.analyze --json`` in a subprocess: the
+   hot-path, lock, lock-order and nondeterminism lints and the
+   proof-coverage gate clean, the interval prover over every stage of the
+   plain versions (``kernel_total`` and ``kernel_hot_total`` included)
+   with no violation, and each envelope's ``envelope_sha256`` that of the
+   committed golden; (b) ``python -m stellar_tpu_torch.tools.kernel_cost
+   --json`` with the card's SM count and clock and the rows phases 6 and
+   9-11 measured K1, K2, K3 and K5 on: every multiply-add count,
+   executed count and bound equal to the one that phase used; (c) the
+   device probe (``python -m stellar_tpu_torch.tools.device_probe``)
+   twice: plain, ``ok`` for ``cuda:0`` with its line appended to
+   ``build/torch_device_probes.jsonl``; under ``CUDA_VISIBLE_DEVICES=``,
+   no card recorded and a nonzero exit; (d) each part's seconds and the
+   phase's, which must stay under 180.
 
 Each kernel's launch count is set to 0 just before its path runs and read
 just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
@@ -604,6 +619,15 @@ try:
     from stellar_tpu_torch.utils.timer import VIRTUAL_TIME, VirtualClock
     from stellar_tpu_torch.utils.transfer_ledger import (
         DEFAULT_FP_MAX_BYTES, transfer_ledger)
+    from stellar_tpu_torch.analysis import overflow
+    from stellar_tpu_torch.tools import kernel_cost
+    # the kernels' multiply-adds, operations and bounds (the card's
+    # figures with them)
+    from stellar_tpu_torch.tools.kernel_cost import (
+        HOT_ENTRY_BYTES, IMAD_PER_CLOCK_PER_SM, INT_OPS_PER_CLOCK_PER_SM,
+        ROW_BYTES, bound, cold_kernel_executed, cold_kernel_multiplies,
+        hot_kernel_executed, hot_kernel_multiplies, r16_kernel_executed,
+        r16_kernel_multiplies, sha_ops_per_block)
     from stellar_tpu_torch.tx import tx_test_utils
     from stellar_tpu_torch.tx.op_frame import account_key
     from stellar_tpu_torch.tx.transaction_frame import make_transaction_frame
@@ -644,31 +668,13 @@ HASH_OVERSIZE_SHARE = 0.02
 HASH_KERNEL_BATCHES = (HASH_MSGS, 16384)
 HASH_CALLS = 20
 HASH_KERNEL_REPS = 200
-# H100 figures for the bound: 32-bit integer multiply-adds, and 32-bit
-# integer add, logic and shift operations, per clock per SM at compute
-# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-# throughput table) and HBM3 bandwidth (NVIDIA's data sheet).
-IMAD_PER_CLOCK_PER_SM = 64
-INT_OPS_PER_CLOCK_PER_SM = 64
-HBM_BYTES_PER_S = 3.35e12
 # cycles of torch.cuda._sleep a second: at least the card's SM clock, so
 # that a spin lasts at least as long as asked (queued_ms checks it did)
 SLEEP_CYCLES_PER_S = 2e9
-ROW_BYTES = 4 * 32 + 1  # A, R, s, h read once, one bool written
-HOT_ENTRY_BYTES = 3 * 20 * 2  # one int16 affine cached entry
 # the cold TxSet's operands at its 2,048 bucket (A, R, s, h) and the hot
 # TxSet's table operand, over the resident cache's 1 MiB cap
 TXSET_OPERAND_BYTES = 4 * KERNEL_BATCHES[0] * 32
 HOT_TABLE_BYTES = KERNEL_BATCHES[0] * 128 * HOT_ENTRY_BYTES
-# K3's bound counts the function's work, FIPS 180-4's operations on
-# 32-bit words a 64-byte block, a three-input add or logic operation as
-# one: a round is Sigma0 and Sigma1 (3 rotations and a three-way XOR
-# each), Ch and Maj (one logic operation each) and 4 adds (2 for T1, one
-# for e, one for a); a schedule word sigma0 and sigma1 (2 rotations, a
-# shift and a three-way XOR each) and 2 adds; the feed-forward 8 adds.
-SHA_ROUND_OPS = 2 * (3 + 1) + 2 + 4
-SHA_SCHEDULE_OPS = 2 * (2 + 1 + 1) + 2
-SHA_FEED_FORWARD_OPS = 8
 # The instructions of the built K3 that do that work, counted from its
 # SASS beside the bound (hash_kernel_executed): 32-bit integer add, logic
 # and shift.
@@ -676,58 +682,6 @@ SHA_SASS_OPS = ("SHF", "LOP3", "IADD3", "IMAD.IADD")
 _SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]\s+)?"
                         r"([A-Z0-9_.]+)\s*([^;]*);")
 
-# Field multiplies of the CUDA kernels' op sequences, for the operations
-# bound. A ``fe_mul`` is 100 32x32->64 multiply-adds, an ``fe_sq`` 55
-# (csrc/fe25519.cuh). (squarings, multiplies) per row:
-FE_MUL_MACS = 100
-FE_SQ_MACS = 55
-# fe_invert / fe_pow22523 (ref10 chains): 254 / 251 squarings, 11 multiplies
-_INVERT = (254, 11)
-_POW22523 = (251, 11)
-# decompress: 4 sq + 7 mul around pow22523, +1 mul for the sqrt(-1) fix
-# (taken always), +1 mul for T
-_DECOMPRESS = (4 + _POW22523[0], 9 + _POW22523[1])
-# an addition: a mixed add of an affine entry (3 mul) or a cached add of a
-# projective one (4 mul), and 4 mul to extended coordinates. (K1's count
-# charges the 4th, T, to the operation before the add, the one that must
-# make it; the sum is the same.)
-_ADD_MULS = 7
-_CACHED_ADD_MULS = 8
-# encode: one inversion and two multiplies
-_ENCODE = (_INVERT[0], _INVERT[1] + 2)
-# K1 (csrc/verify_cold.cu): the function's work. The A-table: 16 cached
-# forms (1 mul for 2dT), 1 doubling (4 sq + 4 mul), 14 cached adds (8 mul),
-# no inversion (the entries stay projective)
-_X4_TABLE = (4, 16 + 4 + 14 * 8)
-# a doubling whose T is not read: 4 sq + 3 mul
-_DOUBLING = (4, 3)
-# What the four-lane kernel executes beyond that (its overhead, for the
-# record, not the bound): every doubling's round 2 makes T (lane 3), and
-# every one of the 52 windows adds an entry of B and one of -A, a zero
-# digit adding the identity, whatever the scalars
-_X4_DOUBLINGS = (51 * 5 * 4, 51 * 5 * 4)
-_X4_ADDS = (0, 52 * (_ADD_MULS + _CACHED_ADD_MULS))
-# K2 (csrc/verify_hot.cuh): the function's work is 8 doublings a window
-# below the most significant nonzero radix-256 digit of s or h, a mixed
-# add (7 mul, as above) for each nonzero digit, and encode. What the
-# four-lane kernel executes beyond that: all 31 windows of 8 doublings,
-# each making T, and both adds in every one of the 32 windows (lane 2's
-# product by the constant 2 not counted, as for K1)
-_HOT_WINDOW_DOUBLINGS = 8
-_X4_HOT_DOUBLINGS = (31 * 8 * 4, 31 * 8 * 4)
-_X4_HOT_ADDS = (0, 32 * 2 * _ADD_MULS)
-# K5 (csrc/verify_r16.cu): the A-table, 1 doubling (4 sq, 4 mul to
-# extended), 6 cached adds (4 mul + 4 to extended), 8 to-cached (1 mul);
-# 63 windows of 4 doublings, 3 muls to projective after 3 of them and 4 to
-# extended after the 4th; a mixed B add (3 mul + 4) per nonzero digit of
-# s, a cached A add (4 mul + 4) per nonzero digit of h, a top digit above
-# 8 included (it adds the zero entry)
-_TABLE16 = (4, 4 + 6 * 8 + 8)
-_R16_DOUBLINGS = (63 * 4 * 4, 63 * (3 * 3 + 4))
-# What the four-lane K5 executes beyond that, as for K1: all 63 windows of
-# 4 doublings making T, and both adds in each of the 64 windows
-_X4_R16_DOUBLINGS = (63 * 4 * 4, 63 * 4 * 4)
-_X4_R16_ADDS = (0, 64 * (_ADD_MULS + _CACHED_ADD_MULS))
 # the split phases' device list: the one card named this many times
 SPLIT = 4
 # phase 26's per-device backoff: far longer than a TxSet call (tens of
@@ -984,104 +938,19 @@ def signed_items(rng, signers, per_signer, msg_len=32):
     return items
 
 
-def cold_kernel_multiplies(s_bytes, h_bytes) -> int:
-    """32x32->64 multiply-adds of K1's function on these rows, for its
-    bound: decompress, the A-table and encode; from the most significant
-    nonzero digit of s or h down, 5 doublings a window; and an addition
-    for each nonzero digit (7 multiplies for s, 8 for h). (batch, 32)
-    uint8 CPU tensors in, a Python int out."""
-    s_nz = vk.signed_digits32(s_bytes) != 0  # (52, batch), top first
-    h_nz = vk.signed_digits32(h_bytes) != 0
-    any_nz = s_nz | h_nz
-    top = torch.where(any_nz.any(0), 51 - any_nz.int().argmax(0), 0)
-    doublings = 5 * int(top.sum())
-    fixed = [_DECOMPRESS, _X4_TABLE, _ENCODE]
-    rows = s_bytes.shape[0]
-    sq = rows * sum(f[0] for f in fixed) + doublings * _DOUBLING[0]
-    mul = (rows * sum(f[1] for f in fixed)
-           + doublings * _DOUBLING[1] + int(s_nz.sum()) * _ADD_MULS
-           + int(h_nz.sum()) * _CACHED_ADD_MULS)
-    return sq * FE_SQ_MACS + mul * FE_MUL_MACS
+# The rows each kernel phase computed a bound on (phases 6 and 9-11),
+# for phase 28 to recompute with the kernel_cost tool: kernel, label,
+# operand bytes, the rows' s and h (or K3's active blocks), and what the
+# phase computed.
+COST_RECORDS = []
 
 
-def cold_kernel_executed(rows: int) -> int:
-    """32x32->64 multiply-adds the four-lane K1 executes for ``rows`` rows,
-    each round's four products counted once: the function's work plus the
-    dead T products and the identity adds. Does not depend on the data."""
-    fixed = [_DECOMPRESS, _X4_TABLE, _X4_DOUBLINGS, _X4_ADDS, _ENCODE]
-    return rows * (sum(f[0] for f in fixed) * FE_SQ_MACS
-                   + sum(f[1] for f in fixed) * FE_MUL_MACS)
-
-
-def hot_kernel_multiplies(s_bytes, h_bytes) -> int:
-    """32x32->64 multiply-adds of K2's function on these rows, for its
-    bound: encode; from the most significant nonzero radix-256 digit of s
-    or h down, 8 doublings a window; and a mixed add (7 multiplies) for
-    each nonzero digit. (batch, 32) uint8 CPU tensors in, a Python int
-    out."""
-    s_nz = vk.signed_digits256(s_bytes) != 0  # (32, batch), top first
-    h_nz = vk.signed_digits256(h_bytes) != 0
-    any_nz = s_nz | h_nz
-    top = torch.where(any_nz.any(0), 31 - any_nz.int().argmax(0), 0)
-    doublings = _HOT_WINDOW_DOUBLINGS * int(top.sum())
-    rows = s_bytes.shape[0]
-    sq = rows * _ENCODE[0] + doublings * _DOUBLING[0]
-    mul = (rows * _ENCODE[1] + doublings * _DOUBLING[1]
-           + int(s_nz.sum() + h_nz.sum()) * _ADD_MULS)
-    return sq * FE_SQ_MACS + mul * FE_MUL_MACS
-
-
-def hot_kernel_executed(rows: int) -> int:
-    """32x32->64 multiply-adds the four-lane K2 executes for ``rows`` rows,
-    each round's products counted once: every window adds both entries
-    (a zero digit the identity) and every doubling makes T. Does not
-    depend on the data."""
-    fixed = [_X4_HOT_DOUBLINGS, _X4_HOT_ADDS, _ENCODE]
-    return rows * (sum(f[0] for f in fixed) * FE_SQ_MACS
-                   + sum(f[1] for f in fixed) * FE_MUL_MACS)
-
-
-def r16_kernel_multiplies(s_bytes, h_bytes) -> int:
-    """32x32->64 multiply-adds of K5's function on these rows, for its
-    bound: the fixed decompress, table, doublings and encode, and one add
-    for each nonzero radix-16 digit (7 multiplies for s, 8 for h).
-    (batch, 32) uint8 CPU tensors in, a Python int out."""
-    nz_s = int((vk.signed_digits16(s_bytes) != 0).sum())
-    nz_h = int((vk.signed_digits16(h_bytes) != 0).sum())
-    fixed = [_DECOMPRESS, _TABLE16, _R16_DOUBLINGS, _ENCODE]
-    sq = sum(f[0] for f in fixed)
-    mul = sum(f[1] for f in fixed)
-    return (s_bytes.shape[0] * (sq * FE_SQ_MACS + mul * FE_MUL_MACS)
-            + (nz_s * _ADD_MULS + nz_h * _CACHED_ADD_MULS) * FE_MUL_MACS)
-
-
-def r16_kernel_executed(rows: int) -> int:
-    """32x32->64 multiply-adds the four-lane K5 executes for ``rows`` rows,
-    each round's products counted once: every doubling makes T and every
-    window adds both entries (a zero digit the identity, a top digit above
-    8 the zero entry). Does not depend on the data."""
-    fixed = [_DECOMPRESS, _TABLE16, _X4_R16_DOUBLINGS, _X4_R16_ADDS,
-             _ENCODE]
-    return rows * (sum(f[0] for f in fixed) * FE_SQ_MACS
-                   + sum(f[1] for f in fixed) * FE_MUL_MACS)
-
-
-def sha_ops_per_block() -> int:
-    """K3's function: 32-bit operations a compressed block by FIPS 180-4
-    (64 rounds, 48 schedule words, the feed-forward), 1,384."""
-    return (64 * SHA_ROUND_OPS + 48 * SHA_SCHEDULE_OPS
-            + SHA_FEED_FORWARD_OPS)
-
-
-def bound(info, ops, ops_per_clock_per_sm, nbytes):
-    """(least ms, what bounds it): the larger of the operations over the
-    card's rate and the bytes over its memory rate."""
-    ops_ms = ops / (ops_per_clock_per_sm * info["sms"]
-                    * info["clock_hz"]) * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    if ops_ms >= bytes_ms:
-        return ops_ms, "operations"
-    return bytes_ms, "bytes"
+def note_cost(kernel, label, s_bytes, h_bytes, nbytes, **computed):
+    rec = {"kernel": kernel, "label": label, "bytes": nbytes, **computed}
+    if s_bytes is not None:
+        rec["s"] = s_bytes.cpu().numpy()
+        rec["h"] = h_bytes.cpu().numpy()
+    COST_RECORDS.append(rec)
 
 
 def sass_code(name, function):
@@ -1611,6 +1480,9 @@ def k1_against_plain(info, ops, label):
     executed = cold_kernel_executed(b)
     bound_ms, bound_by = bound(info, macs, IMAD_PER_CLOCK_PER_SM,
                                b * ROW_BYTES)
+    note_cost("verify_cold", label, ops[2], ops[3], b * ROW_BYTES,
+              multiply_adds=macs, executed_multiply_adds=executed,
+              bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernel-times] {label}: {b} rows ({int(got.sum())} True), "
           f"kernel = plain on every row; K1 {ms:.4f} ms, plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({macs} 32x32->64 "
@@ -1888,6 +1760,9 @@ def phase_hot_kernel_times(dev, rng, info, main_rows):
         executed = hot_kernel_executed(b)
         bound_ms, bound_by = bound(info, macs, IMAD_PER_CLOCK_PER_SM,
                                    b * row_bytes)
+        note_cost("verify_hot", str(b), s_cpu, h_cpu, b * row_bytes,
+                  multiply_adds=macs, executed_multiply_adds=executed,
+                  bound_ms=bound_ms, bound_by=bound_by)
         selected = int((vk.signed_digits256(h_cpu) != 0).sum()) * \
             HOT_ENTRY_BYTES
         per_batch[str(b)] = {
@@ -1956,6 +1831,9 @@ def k3_against_plain(dev, info, msgs):
     row_bytes = MAX_BLOCKS * (64 + 1) + 32
     bound_ms, bound_by = bound(info, blocks * sha_ops_per_block(),
                                INT_OPS_PER_CLOCK_PER_SM, n * row_bytes)
+    note_cost("sha256", str(n), None, None, n * row_bytes, blocks=blocks,
+              operations=blocks * sha_ops_per_block(), bound_ms=bound_ms,
+              bound_by=bound_by)
     return {"ms": ms, "ms_queued": ms_queued, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "active_blocks": blocks,
@@ -2100,6 +1978,9 @@ def phase_radix_sweep(dev, rng, info, main_items, build):
         executed = r16_kernel_executed(b)
         bound_ms, bound_by = bound(info, macs, IMAD_PER_CLOCK_PER_SM,
                                    b * ROW_BYTES)
+        note_cost("verify_r16", str(b), s_cpu, h_cpu, b * ROW_BYTES,
+                  multiply_adds=macs, executed_multiply_adds=executed,
+                  bound_ms=bound_ms, bound_by=bound_by)
         per_batch[str(b)] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "multiply_adds": macs,
@@ -6697,6 +6578,130 @@ def _arm_device_ms(res, kernel, arms, key):
         for arm in arms}}
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+ANALYSIS_LIMIT_S = 180
+COST_ROWS_FILE = os.path.join(REPO, "build", "chip_smoke_cost_rows.npz")
+
+
+def _tool(args, label, timeout, env_prefix=()):
+    """``python -m stellar_tpu_torch.tools.<...>`` from the repository
+    root: (exit code, stdout, stderr, seconds)."""
+    t = time.perf_counter()
+    proc = subprocess.run(list(env_prefix) + [sys.executable, "-m"] + args,
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    secs = time.perf_counter() - t
+    print(f"[analysis] {label}: exit {proc.returncode} in {secs:.1f} s")
+    return proc.returncode, proc.stdout, proc.stderr, secs
+
+
+def phase_analysis(info):
+    """Phase 28: the analysis gate, the cost tool and the device probe on
+    the card's machine."""
+    t0 = time.perf_counter()
+    out = {}
+    # (a) the whole gate, every stage of the interval prover included
+    rc, so, se, secs = _tool(["stellar_tpu_torch.tools.analyze", "--json"],
+                             "analyze --json", 600)
+    check(rc == 0, f"analyze exited {rc}: {so[-2000:]} {se[-2000:]}")
+    rep = _last_json(so)
+    check(rep["ok"], "analyze reports a failure")
+    for name, lint in rep["lints"].items():
+        check(lint["ok"] and not lint["findings"] and
+              not lint["stale_allowlist"], f"lint {name} is not clean")
+    cov = rep["proof_coverage"]
+    check(cov["ok"] and cov["proven"] == 3, f"proof coverage: {cov}")
+    hashes = {}
+    for key, load in (("overflow", overflow.load_golden),
+                      ("overflow_sha256", overflow.load_sha_golden)):
+        rec = rep[key]
+        want = overflow.envelope_sha256(load(REPO))
+        check(rec["ok"] and not rec["violations"] and
+              not rec["unsupported"] and rec["golden"] == "match",
+              f"{key}: {rec}")
+        check(rec["envelope_sha256"] == want, f"{key}: envelope "
+              f"{rec['envelope_sha256']} is not the golden's {want}")
+        hashes[key] = want
+    golden = overflow.load_golden(REPO)
+    check(set(golden["stages"]) == set(overflow.STAGES),
+          f"the golden's stages are {sorted(golden['stages'])}")
+    print(f"[analysis] (a) every lint and the coverage gate clean, "
+          f"{len(overflow.STAGES)} stages and K3 proven, envelopes equal "
+          f"to the goldens ({hashes['overflow'][:16]}, "
+          f"{hashes['overflow_sha256'][:16]}) in {secs:.1f} s")
+    out["analyze_s"] = secs
+    out["envelope_sha256"] = hashes
+    # (b) the cost tool on the card's figures and the phases' rows
+    kinds = collections.Counter(r["kernel"] for r in COST_RECORDS)
+    check(set(kinds) == {"verify_cold", "verify_hot", "verify_r16",
+                         "sha256"}, f"the kernel phases noted {kinds}")
+    kernel_cost.save_rows(COST_ROWS_FILE, COST_RECORDS)
+    rc, so, se, secs = _tool(
+        ["stellar_tpu_torch.tools.kernel_cost", "--json",
+         f"--sms={info['sms']}", f"--clock-hz={info['clock_hz']!r}",
+         f"--rows={COST_ROWS_FILE}"], "kernel_cost --json", 600)
+    check(rc == 0, f"kernel_cost exited {rc}: {se[-2000:]}")
+    cost = _last_json(so)
+    check(len(cost["rows"]) == len(COST_RECORDS), "kernel_cost returned "
+          f"{len(cost['rows'])} rows for {len(COST_RECORDS)}")
+    for got, want in zip(cost["rows"], COST_RECORDS):
+        keys = [k for k in ("multiply_adds", "executed_multiply_adds",
+                            "operations", "bound_ms", "bound_by")
+                if k in want]
+        check({k: got[k] for k in keys} == {k: want[k] for k in keys},
+              f"kernel_cost on {want['kernel']} {want['label']}: "
+              f"{ {k: got.get(k) for k in keys} } against the phase's "
+              f"{ {k: want[k] for k in keys} }")
+    plain = cost["plain"]
+    print(f"[analysis] (b) {len(COST_RECORDS)} rows of K1, K2, K3 and K5 "
+          f"({dict(kinds)}): multiply-adds, executed counts and bounds "
+          f"equal to the kernel phases'; the plain versions at batch "
+          f"{plain['batch']}: dsm {plain['dsm']['executed_macs_per_call']} "
+          f"multiply elements, hot {plain['dsm']['hot']['executed_macs_per_call']}"
+          f" ({plain['signer_table']['hot_savings_frac']:.2%} less), "
+          f"batch_inv {plain['affine_table']['batch_inv_weighted_mul_elems']}"
+          f"; {secs:.1f} s")
+    out["kernel_cost_s"] = secs
+    out["rows_checked"] = len(COST_RECORDS)
+    # (c) the probe, with the card and with none visible
+    log = os.path.join(REPO, "build", "torch_device_probes.jsonl")
+    before = 0
+    if os.path.exists(log):
+        with open(log) as f:
+            before = len(f.readlines())
+    rc, so, se, secs = _tool(["stellar_tpu_torch.tools.device_probe",
+                              "120"], "device_probe", 300)
+    rec = _last_json(so)
+    check(rc == 0 and rec["ok"], f"the probe failed with the card: {rec}")
+    check(rec["platform"] == "cuda" and rec["devices"] and
+          rec["devices"][0]["device"] == "cuda:0" and
+          rec["devices"][0]["ok"], f"the probe's cuda:0: {rec}")
+    with open(log) as f:
+        lines = f.readlines()
+    check(len(lines) == before + 1 and json.loads(lines[-1]) == rec,
+          "the probe did not append its line")
+    rc2, so2, _se2, secs2 = _tool(
+        ["stellar_tpu_torch.tools.device_probe", "120"],
+        "device_probe with no card visible", 300,
+        env_prefix=("env", "CUDA_VISIBLE_DEVICES="))
+    rec2 = _last_json(so2)
+    check(rc2 != 0 and not rec2["ok"] and rec2["devices"] == [] and
+          rec2["platform"] is None, f"with no card visible the probe "
+          f"exited {rc2}: {rec2}")
+    print(f"[analysis] (c) probe: cuda:0 ok in "
+          f"{rec['devices'][0]['probe_s']} s ({rec['card']}), the line "
+          f"appended; with CUDA_VISIBLE_DEVICES= no card recorded, exit "
+          f"{rc2}")
+    out["probe"] = {"card": rec, "no_card": rec2, "exit_no_card": rc2,
+                    "s": [secs, secs2]}
+    total = time.perf_counter() - t0
+    print(f"[analysis] (d) phase 28 in {total:.1f} s (limit "
+          f"{ANALYSIS_LIMIT_S} s); {info['smi']}")
+    check(total < ANALYSIS_LIMIT_S, f"phase 28 took {total:.1f} s")
+    out["phase_s"] = total
+    return out
+
+
 def main() -> int:
     info = phase_device()
     dev = resolve_device(None)
@@ -6769,6 +6774,7 @@ def main() -> int:
     fault_domains = phase_faults(split_v, txset_items, txset_want)
     operator, operator_launches = phase_operator(info)
     operator_rows = operator["a"]["rows"]
+    analysis = phase_analysis(info)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
           f"{k2_txset / hot_txset['p50_ms']:.1%} of the hot TxSet p50")
@@ -6893,7 +6899,7 @@ def main() -> int:
         "node_close": node_close, "catchup_chain": chain,
         "node_network": net, "soroban": soroban,
         "fault_domains": fault_domains, "operator": operator,
-        "card": info["smi"]}))
+        "analysis": analysis, "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

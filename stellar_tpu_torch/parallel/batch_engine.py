@@ -593,9 +593,15 @@ class BatchEngine:
         or load failure raises to the caller."""
         for dev in dict.fromkeys(self._devs):
             key = (type(plugin), dev)
-            if key not in self._prepared:
+            with self._stats_lock:
+                done = key in self._prepared
+            if not done:
+                # the build runs outside the lock: _build serializes it
+                # and keeps the library, so a racing second prepare of the
+                # same key only finds it built
                 plugin.prepare(dev)
-                self._prepared.add(key)
+                with self._stats_lock:
+                    self._prepared.add(key)
 
     def _fill(self, plugin: Workload, encoded: tuple, chunk: int,
               rows: int) -> tuple:
@@ -856,7 +862,8 @@ class BatchEngine:
         """The audit caught wrong bits: quarantine the device for good and
         let the plugin drop what it derived from the part's items."""
         registry.counter(self._ns + ".audit.mismatch").inc()
-        self.convicted.add(part.dev)
+        with self._stats_lock:
+            self.convicted.add(part.dev)
         self.health.quarantine(part.dev, reason="audit-mismatch")
         tracing.flight_recorder.dump(f"audit-mismatch:device{part.dev}")
         plugin.on_audit_conviction(items)

@@ -14,6 +14,7 @@ generator's harnesses run with each close recorded."""
 import ast
 import hashlib
 import importlib
+import re
 from pathlib import Path
 
 from stellar_tpu.ledger import ledger_txn as jlt
@@ -32,18 +33,44 @@ PARTIAL = {
         "Application._apply_global_config", "Application._verify_health"},
     "main/fuzz.py": {"WasmFuzzer.__init__"},
     "main/cli.py": {"cmd_apply_load"},
+    # the analysis gates: scope lists and allowlists name the port's files
+    # and argue the port's code; the lock-order prover's device waits are
+    # PyTorch's; the coverage gate maps to the port's goldens and names
+    # the port's tool in its finding
+    "analysis/locks.py": {"SCOPE", "ALLOWLIST"},
+    "analysis/nondet.py": {"HOST_ORACLE_FILES", "ALLOWLIST"},
+    "analysis/lockorder.py": {"ALLOWLIST", "_DEVICE_FETCH_OPS",
+                              "_World.blocking_kind"},
+    "analysis/coverage.py": {"PROOF_STAGES", "check"},
 }
 
 # The partial copies that define every name of their ``PARTIAL`` entry
 # anew, the port's own version in place of the reference's (ROADMAP.md's
 # divergences say why); those names are taken out of both sides.
 REPLACED = {"main/application.py", "main/cli.py", "main/fuzz.py",
-            "soroban/native_wasm.py"}
+            "soroban/native_wasm.py", "analysis/locks.py",
+            "analysis/nondet.py", "analysis/lockorder.py",
+            "analysis/coverage.py"}
+
+# The copies whose string constants name files and modules of the package
+# (scopes, drift roots, import patterns, finding paths): with
+# ``check_copy(rel, strings=True)`` the reference's package name is read
+# as the port's in string constants too, as it is in imports.
+_PACKAGE_WORD = re.compile(r"\bstellar_tpu\b")
 
 
 class _Normalize(ast.NodeTransformer):
     """Drops docstrings and names the reference's package as the port's
-    in import statements and in ``__import__`` calls."""
+    in import statements and in ``__import__`` calls (and, with
+    ``strings``, in every string constant)."""
+
+    def __init__(self, strings: bool = False):
+        self.strings = strings
+
+    def visit_Constant(self, node):
+        if self.strings and isinstance(node.value, str):
+            node.value = _PACKAGE_WORD.sub("stellar_tpu_torch", node.value)
+        return node
 
     @staticmethod
     def _strip(node):
@@ -107,8 +134,8 @@ def chip_smoke_constants():
     return out
 
 
-def normalized(path: Path) -> ast.Module:
-    return _Normalize().visit(ast.parse(path.read_text()))
+def normalized(path: Path, strings: bool = False) -> ast.Module:
+    return _Normalize(strings).visit(ast.parse(path.read_text()))
 
 
 def module_paths(rel: str):
@@ -177,16 +204,18 @@ def _take_imports(tree: ast.Module) -> set:
     return out
 
 
-def check_copy(rel: str):
+def check_copy(rel: str, strings: bool = False):
     """The copy's source equals the reference's once docstrings are
-    dropped and imports name the port. For a partial copy the
+    dropped and imports (with ``strings``, string constants too) name the
+    port. For a partial copy the
     definitions ``PARTIAL[rel]`` names are first taken out of the
     reference's (and out of its ``__all__``), and its top-level imports
     need only be some of the reference's: it leaves out those that only
     the lacking definitions use. Where ``rel`` is in ``REPLACED``, the
     same names are taken out of the copy too."""
     ref_path, port_path = module_paths(rel)
-    ref, port = normalized(ref_path), normalized(port_path)
+    ref = normalized(ref_path, strings)
+    port = normalized(port_path, strings)
     if rel in PARTIAL:
         ref = _without(ref, PARTIAL[rel])
         if rel in REPLACED:

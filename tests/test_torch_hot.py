@@ -25,7 +25,6 @@ Integer arithmetic throughout: tolerance zero."""
 
 import ctypes
 import hashlib
-import importlib.util
 import os
 import socket
 import subprocess
@@ -484,14 +483,11 @@ def test_hot_lane_add_equals_ref10_madd(host_lib, digits):
 
 
 def test_hot_kernel_multiplies_counts_the_op_sequence():
-    """chip_smoke.py's count of K2's function, for its bound: encode, 8
+    """kernel_cost's count of K2's function, for chip_smoke.py's bound: encode, 8
     doublings a window below the most significant nonzero radix-256 digit
     of s or h, a mixed add for each nonzero digit; and what the four-lane
     kernel executes whatever the digits."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    from stellar_tpu_torch.tools import kernel_cost as smoke
     zero = torch.zeros((2, 32), dtype=torch.uint8)
     # per row, with every digit zero: encode, 254 squarings (55 products)
     # and 13 multiplies (100)

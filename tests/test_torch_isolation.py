@@ -91,6 +91,13 @@ OPERATOR_MODULES = (
     "main.command_handler", "main.fuzz", "main.cli_offline", "main.cli",
     "__main__")
 
+# the analysis gates and the tools that drive them
+ANALYSIS_MODULES = (
+    "analysis", "analysis.lint_base", "analysis.locks", "analysis.nondet",
+    "analysis.lockorder", "analysis.hotpath", "analysis.intervals",
+    "analysis.overflow", "analysis.coverage", "tools", "tools.analyze",
+    "tools.kernel_cost", "tools.device_probe")
+
 # modules the port names in a late import but lacks, each waiting for a
 # later slice (ROADMAP.md's known gaps): none
 KNOWN_GAPS = ()
@@ -118,7 +125,8 @@ def test_forbidden_imports_absent():
         assert os.path.join(ROOT, "stellar_tpu_torch",
                             f"{module}.py") in files
     for module in (NODE_MODULES + CLOSE_MODULES + CATCHUP_MODULES +
-                   NETWORK_MODULES + SOROBAN_MODULES + OPERATOR_MODULES):
+                   NETWORK_MODULES + SOROBAN_MODULES + OPERATOR_MODULES +
+                   ANALYSIS_MODULES):
         assert _module_path("stellar_tpu_torch." + module) in files, module
     for path in files:
         with open(path) as f:

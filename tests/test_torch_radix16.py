@@ -14,7 +14,6 @@ is True exactly when R is 32 zero bytes. Integer arithmetic throughout:
 tolerance zero."""
 
 import ctypes
-import importlib.util
 import os
 import subprocess
 
@@ -173,14 +172,11 @@ def test_base_table_is_the_references():
 
 
 def test_r16_kernel_multiplies_counts_the_op_sequence():
-    """chip_smoke.py's K5 bound: per row 1,521 squarings (55 products)
+    """K5's bound (kernel_cost, for chip_smoke.py): per row 1,521 squarings (55 products)
     and 912 multiplies (100), then 7 multiplies for each nonzero digit of
     s and 8 for each of h; and what the four-lane K5 executes whatever
     the digits, 1,521 squarings and 2,061 multiplies a row."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    from stellar_tpu_torch.tools import kernel_cost as smoke
     zero = torch.zeros((2, 32), dtype=torch.uint8)
     fixed = 1521 * 55 + 912 * 100
     assert smoke.r16_kernel_multiplies(zero, zero) == 2 * fixed

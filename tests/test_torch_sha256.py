@@ -14,7 +14,6 @@ exactly (digest words and bytes, tolerance zero).
 
 import ctypes
 import hashlib
-import importlib.util
 import os
 import subprocess
 
@@ -206,13 +205,10 @@ def test_cuda_compression_on_host_block_edges(host_lib):
 
 
 def test_sha_bound_counts_the_standards_operations():
-    """chip_smoke.py's K3 bound: 1,384 32-bit operations a block from FIPS
-    180-4 (64 rounds of 14, 48 schedule words of 10, 8 feed-forward adds),
-    whatever kernel is built."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    """K3's bound (kernel_cost, for chip_smoke.py): 1,384 32-bit
+    operations a block from FIPS 180-4 (64 rounds of 14, 48 schedule words
+    of 10, 8 feed-forward adds), whatever kernel is built."""
+    from stellar_tpu_torch.tools import kernel_cost as smoke
     assert smoke.SHA_ROUND_OPS == 14 and smoke.SHA_SCHEDULE_OPS == 10
     assert smoke.sha_ops_per_block() == 64 * 14 + 48 * 10 + 8 == 1384
 

@@ -7,7 +7,6 @@ the CUDA source's arithmetic, compiled here for the host with g++ (the
 plain version. Integer arithmetic throughout: tolerance zero."""
 
 import ctypes
-import importlib.util
 import os
 import subprocess
 
@@ -145,16 +144,10 @@ def test_kernel_consts_are_the_curve_constants():
     assert vals[3:] == [c for row in rows for c in row]
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_cold_kernel_multiplies_counts_the_op_sequence():
-    smoke = _chip_smoke()
+    """K1's bound, as ``stellar_tpu_torch.tools.kernel_cost`` counts it
+    for ``chip_smoke.py``."""
+    from stellar_tpu_torch.tools import kernel_cost as smoke
     zero = torch.zeros((2, 32), dtype=torch.uint8)
     # per row, with every digit zero: decompress, the A-table and encode,
     # 513 squarings (55 products) and 165 multiplies (100)
