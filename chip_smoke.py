@@ -501,7 +501,31 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    twice: plain, ``ok`` for ``cuda:0`` with its line appended to
    ``build/torch_device_probes.jsonl``; under ``CUDA_VISIBLE_DEVICES=``,
    no card recorded and a nonzero exit; (d) each part's seconds and the
-   phase's, which must stay under 180.
+   phase's, which must stay under 180;
+29. the tools on the card — (a) ``tools.run_benchmarks.run_all(quick=
+   False, verify="device")``: the reference's five BASELINE scenarios
+   and the compute A/B at full scale (config 1 130 x 100, config 2 5 x
+   1,000, config 3 130 ledgers of 10, config 4 16 x 5, config 5 and the
+   compute load each three interleaved runs a side), the signer-table
+   cache on from empty, each harness call's wall, K1/K2/K3 launches and
+   kernels' CUDA-event time read around it (the harnesses wrapped in
+   ``simulation.load_generator``'s own names, its ``LedgerManager``
+   recording each close's header hash); every row's ``verify_backend``
+   ``device-batch``, the host oracle deciding nothing, the native oracle
+   re-deciding every triple the card decided, each harness's full
+   applied count, config 4 in consensus, configs 2-4 launching K1 and
+   K2, and the last header hash and non-timing fields of configs 1-3 the
+   reference's (``BENCH_PINS``); (b) ``tools.trace_kernel_time.capture``
+   (``torch.profiler``, CUDA activities only; one untimed call, then 3)
+   of phase 4's cold TxSet (cache off), phase 7's hot TxSet (cache on)
+   and one config-2 ledger (``multisig_apply_load(1, 1000)``): the device
+   busy ms a call, the wall, the idle share and the top device ops, the
+   traced K1/K2/K3 counts equal to the launch counters over the traced
+   calls, each TxSet kernel's traced time a launch at most 1.1x its phase
+   6 or 9 CUDA-event time, and a trace with no device event a failure;
+   (c) ``tools.trace_export``'s synthetic resolve on the card and its
+   fleet window, each loading as JSON with spans, instants and counter
+   samples.
 
 Each kernel's launch count is set to 0 just before its path runs and read
 just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
@@ -532,7 +556,9 @@ over each in-process arm of phase 27 (``launches_operator_offline``,
 (a) runs in the node's process, so its rows a kernel come from the
 node's ``dispatch`` route (``rows_operator_run``); its ``pipeline``
 route's delivered parts count the launches of all kernels together, and
-are printed in (a)'s line, not under any one kernel. After every
+are printed in (a)'s line, not under any one kernel. K1, K2 and K3 over
+phase 29 (a)'s ``run_all`` (``launches_tools``; each scenario's, over all
+its runs, in ``tools_launches_by_scenario``). After every
 main-path phase the dispatch must be clean: no device fault (no retry, every
 breaker closed and never opened), no audit mismatch, no conviction; only
 phases 16, 18 (c) and (e), and 26 expect otherwise. The
@@ -620,7 +646,8 @@ try:
     from stellar_tpu_torch.utils.transfer_ledger import (
         DEFAULT_FP_MAX_BYTES, transfer_ledger)
     from stellar_tpu_torch.analysis import overflow
-    from stellar_tpu_torch.tools import kernel_cost
+    from stellar_tpu_torch.tools import (kernel_cost, run_benchmarks,
+                                         trace_export, trace_kernel_time)
     # the kernels' multiply-adds, operations and bounds (the card's
     # figures with them)
     from stellar_tpu_torch.tools.kernel_cost import (
@@ -884,6 +911,37 @@ COPY_REPS = 20
 # ignored by git)
 CHROME_TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "chrome_trace_cold_txset.json")
+# phase 29 (a): each scenario's full applied count under
+# ``tools.run_benchmarks.run_all`` at the reference's scale, and the
+# reference's last header hash and non-timing fields of configs 1-3
+# (``tests/test_torch_tools.py``'s ``slow`` test recomputes them with the
+# reference's harnesses)
+BENCH_APPLIED = {"close": 130 * 100, "multisig": 5 * 1000,
+                 "soroban": 3 * 500, "soroban_wasm": 3 * 500,
+                 "soroban_compute_scval": 3 * 100,
+                 "soroban_compute_wasm": 3 * 100}
+BENCH_PINS = {
+    "close": ("6b03281336a86719e351e0d5338d4e6b4172c2809db4cb66de9c7086b7d77594",
+              {"ledgers": 130, "txs_per_ledger": 100,
+               "total_applied": 13000}),
+    "multisig": (
+        "4d3a2ed85331ac588f1ee6ab59dd3b97a75c8eb892cb4e196eb904fe9e4f06e6",
+        {"scenario": "multisig", "ledgers": 5, "txs_per_ledger": 1000,
+         "signatures_per_ledger": 2000, "total_applied": 5000}),
+    "catchup": (
+        "47410ce79289767528ffc41ee3a140e239a1b832dc319f905d0590bc6b1ac15a",
+        {"scenario": "catchup-replay", "replayed_ledgers": 125,
+         "txs_per_ledger": 10})}
+BENCH_SCP_ROUNDS = 5
+# phase 29 (b): the traced calls after the untimed one; a kernel's traced
+# time a launch within this factor of its CUDA-event time at the same
+# bucket (phases 6 and 9; the events include the host's issue gap); one
+# config-2 ledger's transactions; where the traces are written
+PROFILE_ITERS = 3
+PROFILE_SLACK = 1.1
+PROFILE_MULTISIG_TXS = 1000
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "torch_traces")
 
 
 class PhaseFailed(Exception):
@@ -6702,6 +6760,345 @@ def phase_analysis(info):
     return out
 
 
+class _BenchRecord(_ArmRecord):
+    """What phase 29 (a) saw: ``_ArmRecord``'s kernel events and counted
+    host oracle, every ``BatchVerifier.verify_batch`` call's triples with
+    their verdicts, and, through ``simulation.load_generator``'s own names
+    (``run_all`` imports them from there when it runs), every harness
+    call's keyword arguments, record, wall, K1/K2/K3 launches and kernel
+    time, with its closes' header hashes from the harness's
+    ``LedgerManager``."""
+
+    HARNESSES = ("apply_load", "multisig_apply_load", "catchup_replay_bench",
+                 "scp_storm_bench", "soroban_apply_load",
+                 "soroban_compute_load")
+
+    def __init__(self):
+        super().__init__()
+        self.runs = []
+        self._hashes = None
+
+    def _harness(self, name):
+        def wrap(fn):
+            def run(**kwargs):
+                self._hashes = []
+                c0 = _counts()
+                self.start_window()
+                t = time.perf_counter()
+                out = fn(**kwargs)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t
+                c1 = _counts()
+                self.runs.append({
+                    "harness": name, "kwargs": kwargs, "record": dict(out),
+                    "wall_s": wall_s,
+                    "launches": {k: c1[k] - c0[k] for k in c1},
+                    "kernels": self.kernel_time(wall_s),
+                    "hashes": self._hashes})
+                self._hashes = None
+                return out
+            return run
+        return wrap
+
+    def _verify_batch(self, fn):
+        def verify_batch(v, items, trace_ids=None):
+            out = fn(v, items, trace_ids=trace_ids)
+            with self._lock:
+                self.triples.update(zip(
+                    (tuple(bytes(x) for x in it) for it in items),
+                    map(bool, out)))
+            return out
+        return verify_batch
+
+    def _manager(self, cls):
+        rec = self
+
+        class RecordingManager(cls):
+            def close_ledger(self, lcd):
+                res = super().close_ledger(lcd)
+                if rec._hashes is not None:
+                    rec._hashes.append(res.header_hash.hex())
+                return res
+        return RecordingManager
+
+    def wrapped(self):
+        return _Wrapped(
+            *((load_generator, name, self._harness(name))
+              for name in self.HARNESSES),
+            (load_generator, "LedgerManager", self._manager),
+            (BatchVerifier, "verify_batch", self._verify_batch),
+            (verify_service.VerifyService, "verify", self._service),
+            (TrickleBatcher, "verify_sig", self._trickle),
+            (overlay_manager, "_preverify_into_cache", self._preverify),
+            (_build, "launch", self._launch),
+            (keys, "_ref", lambda module: self.oracle))
+
+
+BENCH_TIMING = ("_ms", "_per_sec", "over_p50", "wall_s")
+# run_all's scenario names, by the harness that fills them
+BENCH_SCENARIOS = {"close": "apply_load", "multisig": "multisig_apply_load",
+                   "catchup": "catchup_replay_bench",
+                   "scp_storm": "scp_storm_bench",
+                   "soroban": "soroban_apply_load",
+                   "soroban_wasm": "soroban_apply_load",
+                   "soroban_compute_scval": "soroban_compute_load",
+                   "soroban_compute_wasm": "soroban_compute_load"}
+
+
+def _tools_bench(info):
+    """(a): ``run_benchmarks.run_all(quick=False, verify="device")``, the
+    reference's five scenarios and the compute A/B at full scale with the
+    signer-table cache on (empty) and the verify cache flushed."""
+    check(not any(_process_state().values()),
+          f"tools (a): process-wide state running {_process_state()}")
+    keys.flush_verify_cache()
+    signer_table_cache._reset_for_testing()
+    rec = _BenchRecord()
+    _zero_counts()
+    t = time.perf_counter()
+    try:
+        with rec.wrapped():
+            results = run_benchmarks.run_all(quick=False, verify="device")
+        launches = _counts()
+        backend = keys.get_verifier_backend_name()
+    finally:
+        _stop_process_state()
+    wall_s = time.perf_counter() - t
+    check(launches == _sum_counts(rec.runs), f"tools (a): launches "
+          f"{launches} over run_all, the harness calls' sum "
+          f"{_sum_counts(rec.runs)}")
+    check(backend == "device-batch" and all(
+        r["verify_backend"] == "device-batch" for r in results.values()),
+        f"tools (a): verify backends "
+        f"{ {k: r['verify_backend'] for k, r in results.items()} }")
+    check(rec.oracle.calls == 0, f"tools (a): the host oracle decided "
+          f"{rec.oracle.calls} signatures")
+    check_dispatch_clean([default_verifier(), default_hasher()], "tools (a)")
+    check(set(results) == set(BENCH_SCENARIOS), f"tools (a): scenarios "
+          f"{sorted(results)}")
+    for name, want in BENCH_APPLIED.items():
+        check(results[name]["total_applied"] == want, f"tools (a): {name} "
+              f"applied {results[name]['total_applied']}, not {want}")
+    s = results["scp_storm"]
+    check(s["rounds"] == BENCH_SCP_ROUNDS and s["total_statements"] > 0,
+          f"tools (a): scp storm {s}")
+    # each scenario's own run: the one call of configs 1-4, the best run
+    # of each A/B side (run_all keeps that run's record)
+    runs = {}
+    for name, harness in BENCH_SCENARIOS.items():
+        mine = [r for r in rec.runs if r["harness"] == harness and
+                r["record"].get("engine") == results[name].get("engine")]
+        best = [r for r in mine if r["record"] == {
+            k: v for k, v in results[name].items()
+            if k not in ("ab_runs", "ab_method", "verify_backend")}]
+        check(len(best) >= 1, f"tools (a): no run of {harness} gave "
+              f"{name}'s record")
+        runs[name] = dict(best[0], runs=len(mine),
+                          launches_all_runs=_sum_counts(mine))
+    for name, (last_hash, fields) in BENCH_PINS.items():
+        r = runs[name]
+        got = {k: v for k, v in r["record"].items()
+               if not any(t_ in k for t_ in BENCH_TIMING)}
+        check(r["hashes"] and r["hashes"][-1] == last_hash and
+              got == fields, f"tools (a): {name}: last header hash "
+              f"{r['hashes'][-1:]} and fields {got}, not the reference's")
+    for name in ("multisig", "catchup", "scp_storm"):
+        ln = runs[name]["launches"]
+        check(ln["verify_cold"] > 0 and ln["verify_hot"] > 0,
+              f"tools (a): {name} launched K1 and K2 {ln}")
+    # every verdict decided again by the native host oracle (the audit's;
+    # ``ref.verify`` in Python takes about 3 ms a triple on that host)
+    t = time.perf_counter()
+    triples = list(rec.triples)
+    host = native_verify.host_verify(triples)
+    bad = [x for x, h in zip(triples, host) if bool(h) != rec.triples[x]]
+    recheck_s = time.perf_counter() - t
+    check(triples and not bad, f"tools (a): the host oracle disagrees "
+          f"with {len(bad)} of {len(triples)} verdicts")
+    for name, r in runs.items():
+        k = r["kernels"]
+        print(f"[tools] (a) {name}: {json.dumps(results[name], sort_keys=True)}"
+              f"; wall {r['wall_s']:.3f} s (best of {r['runs']} runs); "
+              f"launches {r['launches']} ({r['launches_all_runs']} over "
+              f"its {r['runs']} runs); the kernels (CUDA events around "
+              f"each launch) {k['ms']:.3f} ms, {k['share_of_wall']:.4%} of "
+              f"the wall, by kernel "
+              f"{ {n: round(v['ms'], 3) for n, v in k['by_kernel'].items()} }"
+              f"; card {info['smi']}")
+    calls = [(r["harness"], r["kwargs"].get("use_wasm"),
+              round(r["wall_s"], 3), r["launches"]) for r in rec.runs]
+    print(f"[tools] (a) every harness call in order (harness, use_wasm, "
+          f"wall s, launches): {calls}")
+    print(f"[tools] (a) run_all in {wall_s:.1f} s, {len(rec.runs)} harness "
+          f"calls; every row's verify_backend device-batch; the host oracle "
+          f"decided nothing; the native oracle ({native_verify.backend()}) "
+          f"re-decided {len(triples)} triples in {recheck_s:.1f} s, all "
+          f"agree; pins of configs 1-3 the reference's; launches in all "
+          f"{launches}")
+    return {"results": results, "wall_s": wall_s,
+            "runs": {n: {k: r[k] for k in ("wall_s", "launches", "kernels",
+                                           "runs", "launches_all_runs")}
+                     for n, r in runs.items()},
+            "calls": calls, "triples": len(triples),
+            "oracle_recheck_s": recheck_s}, launches
+
+
+def _kernel_of(op):
+    """The port's kernel a traced device op is, by its name, or None."""
+    for name in ("verify_cold", "verify_hot", "sha256"):
+        if f"{name}_kernel" in op:
+            return name
+    return None
+
+
+def _profiled(label, fn, bucket_ms, info):
+    """``trace_kernel_time.capture`` of ``fn``: the traced K1/K2/K3 counts
+    equal to the launch counters' over the traced calls, each kernel's
+    mean traced time a launch at most ``PROFILE_SLACK`` x its CUDA-event
+    time ``bucket_ms`` (kernel -> ms) where given, device busy ms a call
+    and the idle share over the capture's own wall."""
+    calls = []
+
+    def counted():
+        c0 = _counts()
+        fn()
+        c1 = _counts()
+        calls.append({k: c1[k] - c0[k] for k in c1})
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, f"{label}.json")
+    try:
+        rec = trace_kernel_time.capture(counted, PROFILE_ITERS, path)
+    except trace_kernel_time.NoDeviceEvents as e:
+        raise PhaseFailed(f"tools (b) {label}: {e}")
+    events = trace_kernel_time.load_events(path)
+    dev = [ev for ev in events if trace_kernel_time.is_device_event(ev)]
+    traced = collections.Counter()
+    traced_us = collections.defaultdict(float)
+    for ev in dev:
+        k = _kernel_of(ev["name"])
+        if k is not None:
+            traced[k] += 1
+            traced_us[k] += float(ev["dur"])
+    launched = {k: sum(c[k] for c in calls[-PROFILE_ITERS:])
+                for k in calls[0]}
+    check(all(traced[k] == n for k, n in launched.items()),
+          f"tools (b) {label}: traced kernels {dict(traced)}, launched "
+          f"{launched}")
+    per_launch = {k: traced_us[k] / 1e3 / traced[k] for k in traced}
+    for k, want in bucket_ms.items():
+        check(k in per_launch and per_launch[k] <= want * PROFILE_SLACK,
+              f"tools (b) {label}: {k} {per_launch.get(k)} ms a launch "
+              f"traced against {want} ms by CUDA events")
+    busy, wall = rec["device_busy_ms_per_iter"], rec["wall_ms_per_iter"]
+    out = {"device_busy_ms_per_call": busy, "wall_ms_per_call": wall,
+           "idle_share": 1 - busy / wall, "launched": launched,
+           "kernel_ms_per_launch": per_launch,
+           "against_events_ms": bucket_ms,
+           "top_device_ops": rec["top_device_ops"],
+           "processes": rec["processes"], "trace": os.path.relpath(path, REPO)}
+    print(f"[tools] (b) {label}: device busy {busy} ms a call, wall "
+          f"{wall:.3f} ms, idle share {out['idle_share']:.4%}; traced "
+          f"{dict(traced)} = launched {launched}; kernel ms a launch "
+          f"traced { {k: round(v, 4) for k, v in per_launch.items()} } "
+          f"against CUDA events {bucket_ms}; top device ops "
+          f"{rec['top_device_ops']}; card {info['smi']}")
+    return out, dev, events
+
+
+def _trace_fields(dev, events):
+    """What the trace holds, for the record: the process names, a device
+    event's keys and categories."""
+    procs = sorted({e.get("args", {}).get("name", "") for e in events
+                    if e.get("ph") == "M" and e.get("name") == "process_name"})
+    return {"processes": procs, "device_event_keys": sorted(dev[0]),
+            "device_cats": sorted({e["cat"] for e in dev}),
+            "device_args": sorted(dev[0].get("args", {})),
+            "host_cats": sorted({e.get("cat", "") for e in events
+                                 if e.get("ph") == "X" and not
+                                 trace_kernel_time.is_device_event(e)})}
+
+
+def _tools_profile(info, txset_items, txset_want, bucket_ms):
+    """(b): the cold TxSet of phase 4 (cache off), the hot TxSet of phase 7
+    (cache on, its tables built by the untimed call) and one config-2
+    ledger (``multisig_apply_load(1, 1000)``, the verify cache flushed a
+    call, the card behind ``verify_sig``), each traced by
+    ``torch.profiler``."""
+    v = default_verifier()
+    out = {}
+
+    def txset():
+        check(np.array_equal(v.verify_batch(txset_items), txset_want),
+              "tools (b): a TxSet call differs from the oracle")
+    signer_table_cache.configure(enabled=False)
+    out["cold_txset"], dev, events = _profiled(
+        "cold_txset", txset, {"verify_cold": bucket_ms["cold"]}, info)
+    out["fields"] = _trace_fields(dev, events)
+    print(f"[tools] (b) the trace's fields: {out['fields']}")
+    signer_table_cache._reset_for_testing()
+    signer_table_cache.configure(enabled=True)
+    out["hot_txset"], _d, _e = _profiled(
+        "hot_txset", txset, {"verify_hot": bucket_ms["hot"],
+                             "verify_cold": bucket_ms["hot_cold"]}, info)
+
+    def ledger():
+        keys.flush_verify_cache()
+        r = load_generator.multisig_apply_load(
+            n_ledgers=1, txs_per_ledger=PROFILE_MULTISIG_TXS)
+        check(r["total_applied"] == PROFILE_MULTISIG_TXS,
+              f"tools (b): the config-2 ledger applied {r['total_applied']}")
+    signer_table_cache._reset_for_testing()
+    default_verifier().install()
+    try:
+        out["config2_ledger"], _d, _e = _profiled("config2_ledger", ledger,
+                                                  {}, info)
+    finally:
+        keys.set_verifier_backend(None)
+    check_dispatch_clean([default_verifier(), default_hasher()], "tools (b)")
+    return out
+
+
+def _tools_export(info):
+    """(c): the exporter's synthetic resolve on the card and its fleet
+    window, each from an empty recorder and pipeline ring; each trace loads
+    as JSON with spans, instants and counter samples."""
+    out = {}
+    for name, make in (("synthetic", trace_export.synthetic_trace),
+                       ("fleet", trace_export.synthetic_fleet_trace)):
+        # each export as the tool's own process gives it: the recorder
+        # and the pipeline's ring hold its records alone
+        tracing.flight_recorder.clear()
+        pipeline_timeline._reset_for_testing()
+        t = time.perf_counter()
+        trace = json.loads(json.dumps(make()))
+        counts = trace_export.event_counts(trace)
+        check(counts["spans"] > 0 and counts["instants"] > 0 and
+              counts["counters"] > 0, f"tools (c) {name}: {counts}")
+        out[name] = dict(counts, s=time.perf_counter() - t)
+        print(f"[tools] (c) trace_export {name}: {counts['events']} events "
+              f"({counts['spans']} spans, {counts['instants']} instants, "
+              f"{counts['counters']} counter samples) in {out[name]['s']:.3f}"
+              f" s; card {info['smi']}")
+    check_dispatch_clean([default_verifier()], "tools (c)")
+    return out
+
+
+def phase_tools(info, txset_items, txset_want, bucket_ms):
+    """Phase 29: the tools on the card. (a) ``run_benchmarks.run_all`` at
+    full scale, (b) ``trace_kernel_time`` over ``torch.profiler`` traces
+    of the cold and hot TxSets and one config-2 ledger, (c)
+    ``trace_export``'s two local modes. K1's, K2's and K3's counts over
+    each harness call of (a) are read around it."""
+    t0 = time.perf_counter()
+    res = {"card": info["smi"]}
+    res["a"], launches = _tools_bench(info)
+    res["b"] = _tools_profile(info, txset_items, txset_want, bucket_ms)
+    res["c"] = _tools_export(info)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[tools] phase 29 in {res['seconds']:.1f} s; card {info['smi']}")
+    return res, launches
+
+
 def main() -> int:
     info = phase_device()
     dev = resolve_device(None)
@@ -6775,6 +7172,12 @@ def main() -> int:
     operator, operator_launches = phase_operator(info)
     operator_rows = operator["a"]["rows"]
     analysis = phase_analysis(info)
+    tools, tools_launches = phase_tools(
+        info, txset_items, txset_want, {
+            "cold": per_batch[str(KERNEL_BATCHES[0])]["ms"],
+            "hot": hot_batch[str(KERNEL_BATCHES[0])]["ms"],
+            "hot_cold": next(v["ms"] for k, v in per_batch.items()
+                             if k.startswith("hot_txset:"))})
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
           f"{k2_txset / hot_txset['p50_ms']:.1%} of the hot TxSet p50")
@@ -6812,6 +7215,10 @@ def main() -> int:
                      **_arm_device_ms(operator, "verify_cold", ("c",),
                                       "operator_device_ms"),
                      rows_operator_run=operator_rows["verify_cold"],
+                     launches_tools=tools_launches["verify_cold"],
+                     tools_launches_by_scenario={
+                         n: r["launches_all_runs"]["verify_cold"]
+                         for n, r in tools["a"]["runs"].items()},
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -6838,6 +7245,10 @@ def main() -> int:
                      **_arm_device_ms(operator, "verify_hot", ("c",),
                                       "operator_device_ms"),
                      rows_operator_run=operator_rows["verify_hot"],
+                     launches_tools=tools_launches["verify_hot"],
+                     tools_launches_by_scenario={
+                         n: r["launches_all_runs"]["verify_hot"]
+                         for n, r in tools["a"]["runs"].items()},
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -6864,6 +7275,10 @@ def main() -> int:
                      **_arm_device_ms(operator, "sha256", ("c",),
                                       "operator_device_ms"),
                      rows_operator_run=operator_rows["sha256"],
+                     launches_tools=tools_launches["sha256"],
+                     tools_launches_by_scenario={
+                         n: r["launches_all_runs"]["sha256"]
+                         for n, r in tools["a"]["runs"].items()},
                      **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
@@ -6899,7 +7314,7 @@ def main() -> int:
         "node_close": node_close, "catchup_chain": chain,
         "node_network": net, "soroban": soroban,
         "fault_domains": fault_domains, "operator": operator,
-        "analysis": analysis, "card": info["smi"]}))
+        "analysis": analysis, "tools": tools, "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

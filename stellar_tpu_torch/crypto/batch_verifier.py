@@ -66,7 +66,8 @@ from stellar_tpu_torch.utils.device import resolve_device
 from stellar_tpu_torch.utils.metrics import registry
 
 __all__ = ["BatchVerifier", "Ed25519Workload", "Ed25519HotWorkload",
-           "TrickleBatcher", "default_verifier", "configure_dispatch",
+           "TrickleBatcher", "default_verifier", "select_verifier",
+           "configure_dispatch",
            "device_available", "start_device_probe", "dispatch_health",
            "dispatch_attribution", "dispatch_degraded", "note_shed_onset",
            "note_trace_event", "trace_ranges", "register_service_health",
@@ -445,3 +446,22 @@ def default_verifier(device=None) -> BatchVerifier:
             register_default_engine(f"verify:{','.join(key)}",
                                     _defaults[key])
         return _defaults[key]
+
+
+def select_verifier(mode: str) -> None:
+    """Set the port's verify backend for a run of the load generator's
+    scenarios (``apply-load``, ``tools.run_benchmarks``): ``device``
+    installs :func:`default_verifier` behind
+    :func:`stellar_tpu_torch.crypto.keys.verify_sig` (raises with no
+    card), ``host`` the host oracle (``ed25519_ref.verify``, an explicit
+    choice), and ``auto`` reads as ``device`` wherever a card answers the
+    probe, else leaves ``keys``' default."""
+    from stellar_tpu_torch.crypto import keys
+    if mode == "auto" and device_available():
+        mode = "device"
+    if mode == "device":
+        default_verifier().install()
+    elif mode == "host":
+        keys.set_verifier_backend(ref.verify)
+    elif mode != "auto":
+        raise ValueError(f"unknown verify mode {mode!r}")

@@ -514,25 +514,11 @@ def cmd_apply_load(args) -> int:
             base = soroban_ops.default_soroban_config()
             soroban_ops._DEFAULT_CONFIG = dataclasses.replace(
                 base, **overrides)
-    mode = getattr(args, "verify", "auto")
-    if mode == "auto":
-        # the card is the default wherever one answers the probe
-        from stellar_tpu_torch.crypto.batch_verifier import device_available
-        if device_available():
-            mode = "device"
-    if mode == "device":
-        # force every verification through the device batch verifier
-        # (BASELINE #3: catchup replay no longer sig-bound)
-        from stellar_tpu_torch.crypto.batch_verifier import default_verifier
-        default_verifier().install()
-    elif mode == "host":
-        # force the host oracle even for large batches (the CPU
-        # baseline side of the A/B)
-        from stellar_tpu_torch.crypto import ed25519_ref
-        from stellar_tpu_torch.crypto.keys import set_verifier_backend
-        set_verifier_backend(ed25519_ref.verify)
-    # "auto" (default) with no card answering: host below
-    # MIN_DEVICE_BATCH, device above
+    # the card is the default wherever one answers the probe; "host"
+    # forces the host oracle even for large batches (the CPU baseline
+    # side of the A/B)
+    from stellar_tpu_torch.crypto.batch_verifier import select_verifier
+    select_verifier(getattr(args, "verify", "auto"))
     if args.scenario == "catchup":
         stats = catchup_replay_bench(n_ledgers=args.ledgers,
                                      txs_per_ledger=args.txs)

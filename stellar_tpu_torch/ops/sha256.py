@@ -67,8 +67,24 @@ def max_message_bytes(max_blocks: int) -> int:
     return max_blocks * 64 - 9
 
 
+def _madd(*terms):
+    """Masked mod-2^32 add as the reference's: the terms' 16-bit halves
+    are summed apart (each half's sum stays under 2^19), then one carry
+    and a recombine of disjoint pieces, so no intermediate reaches
+    2^32."""
+    lo = hi = None
+    for t in terms:
+        tl, th = t & 0xFFFF, t >> 16
+        lo = tl if lo is None else lo + tl
+        hi = th if hi is None else hi + th
+    hi = hi + (lo >> 16)
+    return ((hi & 0xFFFF) << 16) + (lo & 0xFFFF)
+
+
 def _rotr(x, n: int):
-    return ((x >> n) | (x << (32 - n))) & _MASK32
+    """rotr32 as the reference's: the left shift's operand is first
+    masked to its low ``n`` bits, so no intermediate reaches 2^32."""
+    return (x >> n) | ((x & ((1 << n) - 1)) << (32 - n))
 
 
 def sha256_kernel_plain(words, active):
@@ -92,17 +108,17 @@ def sha256_kernel_plain(words, active):
                 s0 = _rotr(win[1], 7) ^ _rotr(win[1], 18) ^ (win[1] >> 3)
                 s1 = _rotr(win[14], 17) ^ _rotr(win[14], 19) ^ \
                     (win[14] >> 10)
-                w_i = (win[0] + s0 + win[9] + s1) & _MASK32
+                w_i = _madd(win[0], s0, win[9], s1)
             win = win[1:] + [w_i]
             big_s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
             ch = g ^ (e & (f ^ g))
-            t1 = (h + big_s1 + ch + K[i] + w_i) & _MASK32
+            t1 = _madd(h, big_s1, ch, K[i], w_i)
             big_s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
             maj = (a & b) ^ (a & c) ^ (b & c)
-            t2 = (big_s0 + maj) & _MASK32
-            a, b, c, d, e, f, g, h = ((t1 + t2) & _MASK32, a, b, c,
-                                      (d + t1) & _MASK32, e, f, g)
-        summed = [(s + v) & _MASK32 for s, v in
+            t2 = _madd(big_s0, maj)
+            a, b, c, d, e, f, g, h = (_madd(t1, t2), a, b, c,
+                                      _madd(d, t1), e, f, g)
+        summed = [_madd(s, v) for s, v in
                   zip(state, (a, b, c, d, e, f, g, h))]
         state = [torch.where(active[:, blk], s, v)
                  for s, v in zip(summed, state)]

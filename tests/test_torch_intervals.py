@@ -268,8 +268,8 @@ def test_envelope_does_not_depend_on_the_batch(proofs, stage, batch):
 
 def test_sha256_outputs_equal_the_reference():
     """K3's plain version: digest words spanning exactly uint32, as the
-    reference's; its worst intermediate is the int64 rotation's OR
-    (2^62 - 1), where the reference's uint32 words top out at 2^32 - 1."""
+    reference's; with the reference's masked rotation and half-word
+    adds, its worst intermediate is 2^32 - 1, the reference's too."""
     rec = overflow.prove_sha256(2)
     assert rec["ok"], (rec["violations"][:3], rec["unsupported"])
     want = _ref_golden("sha256_bounds.json")
@@ -279,8 +279,19 @@ def test_sha256_outputs_equal_the_reference():
     assert stage["outputs"] == want["stages"]["sha256_kernel"]["outputs"] \
         == {"digest": [[0, 0xFFFFFFFF]]}
     assert want["stages"]["sha256_kernel"]["max_abs"] == 0xFFFFFFFF
-    assert stage["max_abs"] == (1 << 62) - 1
+    assert stage["max_abs"] == 0xFFFFFFFF
     assert got == overflow.load_sha_golden(ROOT)
+
+
+def test_sha256_goldens_equal():
+    """The port's committed K3 golden is the reference's, envelope and
+    hash alike."""
+    port = overflow.load_sha_golden(ROOT)
+    want = _ref_golden("sha256_bounds.json")
+    assert port["stages"]["sha256_kernel"] == \
+        want["stages"]["sha256_kernel"]
+    assert port == want
+    assert overflow.envelope_sha256(port) == overflow.envelope_sha256(want)
 
 
 def test_ports_goldens_reproduced_and_committed(proofs):

@@ -98,6 +98,10 @@ ANALYSIS_MODULES = (
     "analysis.overflow", "analysis.coverage", "tools", "tools.analyze",
     "tools.kernel_cost", "tools.device_probe")
 
+# the benchmark runner, the profiler trace's reader and the span exporter
+TOOLS_MODULES = ("tools.run_benchmarks", "tools.trace_kernel_time",
+                 "tools.trace_export")
+
 # modules the port names in a late import but lacks, each waiting for a
 # later slice (ROADMAP.md's known gaps): none
 KNOWN_GAPS = ()
@@ -126,7 +130,7 @@ def test_forbidden_imports_absent():
                             f"{module}.py") in files
     for module in (NODE_MODULES + CLOSE_MODULES + CATCHUP_MODULES +
                    NETWORK_MODULES + SOROBAN_MODULES + OPERATOR_MODULES +
-                   ANALYSIS_MODULES):
+                   ANALYSIS_MODULES + TOOLS_MODULES):
         assert _module_path("stellar_tpu_torch." + module) in files, module
     for path in files:
         with open(path) as f:
@@ -885,6 +889,57 @@ def test_entry_point_with_jax_blocked():
     from stellar_tpu_torch.protocol import CURRENT_LEDGER_PROTOCOL_VERSION
     assert out == {"stellar_tpu": "0.1.0", "ledger_protocol_version":
                    CURRENT_LEDGER_PROTOCOL_VERSION}
+
+
+def test_tools_with_jax_blocked(tmp_path):
+    """The three tools in a fresh interpreter in which importing jax or
+    stellar_tpu fails: ``run_benchmarks.main`` over stub harnesses with
+    the host oracle, writing into a temporary directory;
+    ``trace_kernel_time`` over a trace of one kernel; ``trace_export``'s
+    fleet window to a file."""
+    trace = tmp_path / "t.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "verify_cold_kernel",
+         "pid": 0, "tid": 7, "ts": 0.0, "dur": 500.0}]}))
+    code = "\n".join([
+        "import json, pathlib, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['stellar_tpu'] = None",
+        "import importlib",
+        f"for m in {TOOLS_MODULES!r}:",
+        "    importlib.import_module('stellar_tpu_torch.' + m)",
+        "from stellar_tpu_torch.simulation import load_generator as lg",
+        "from stellar_tpu_torch.tools import run_benchmarks as rb",
+        "from stellar_tpu_torch.tools import trace_export as te",
+        "from stellar_tpu_torch.tools import trace_kernel_time as tk",
+        "def stub(**kw):",
+        "    return {'txs_per_sec': 1.0, 'close_mean_ms': 1.0,",
+        "            'close_p99_ms': 1.0, 'tx_apply_per_sec': 1.0,",
+        "            'ledgers': 1, 'ledgers_per_sec': 1.0,",
+        "            'replayed_ledgers': 1, 'signatures_per_ledger': 3,",
+        "            'engine': 'scval', 'loop_iterations': 1}",
+        "for name in ('apply_load', 'multisig_apply_load',",
+        "             'catchup_replay_bench', 'scp_storm_bench',",
+        "             'soroban_apply_load', 'soroban_compute_load'):",
+        "    setattr(lg, name, stub)",
+        f"out = pathlib.Path({str(tmp_path)!r})",
+        "rb.OUT_JSON, rb.OUT_MD, rb.REPO = out / 'b.json', out / 'b.md', out",
+        "assert rb.main(['--quick', '--verify', 'host']) == 0",
+        f"assert tk.main([{str(trace)!r}, '1']) == 0",
+        "assert te.main(['--fleet', '--out', str(out / 'f.json')]) == 0",
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules",
+        "                     if sys.modules[m] is not None]",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert json.loads(lines[-1])["device_busy_ms_per_iter"] == 0.5
+    assert json.loads(lines[-2])["wrote"] == ["b.json", "b.md"]
+    rows = json.loads((tmp_path / "b.json").read_text())
+    assert {r["verify_backend"] for r in rows.values()} == {"host-oracle"}
+    fleet = json.loads((tmp_path / "f.json").read_text())
+    assert any(e["ph"] == "C" for e in fleet["traceEvents"])
 
 
 def test_node_verify_seam():
