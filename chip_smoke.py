@@ -525,7 +525,30 @@ in order; each one fails loudly (a message on stderr, exit code 1):
    6 or 9 CUDA-event time, and a trace with no device event a failure;
    (c) ``tools.trace_export``'s synthetic resolve on the card and its
    fleet window, each loading as JSON with spans, instants and counter
-   samples.
+   samples;
+30. the engine's four self-checks on the card, in this process, each
+   ``run()`` of ``stellar_tpu_torch.tools.<name>`` printed as one
+   ``[selfcheck]`` line and failing the run unless ``ok`` and on the
+   card: (a) ``metrics_selfcheck`` (one 64-row resolve from 8 signers,
+   as the reference's: the first sights build their tables and ride
+   K1, the repeats ride K2; every phase span, their coverage of the
+   root, the Prometheus exposition); (b)
+   ``transfer_selfcheck`` (K3 over the card named 4 times, the resident
+   cache off then on, ``flaky-device:0`` armed: the redundancy detector,
+   zero redundant bytes with resident hits, the ledger reconciled with
+   the engine, every digest hashlib's); (c) ``pipeline_selfcheck`` (K3
+   over the card named 4 times: ``stall-device:1`` and
+   ``stall-transfer:1`` as ``queue_wait`` bubbles, a 6-chunk resolve's
+   ``overlap_frac`` at least 0.5, the time-series ring hammered
+   concurrently); (d) ``hot_signer_selfcheck`` at 1,008 signers (K1 and
+   K2 over the card named 4 times: oracle verdicts, replicas equal,
+   every launch at 2 rows, zero redundant bytes on re-dispatch with the
+   resident cache on, evictions under a 10-table budget); each tool's
+   seconds and K1/K2/K3 launches (one K1 and one K2 for (a), K3 for (b)
+   and (c), K1 and K2 for (d)), the engines of (a) and (d) clean after;
+   (e) the attribution floor, printed and not gated: 40 K1-only 64-row
+   calls with the signer-table cache off, their coverage (the open fault
+   of ROADMAP queue 3); the phase under 120 s.
 
 Each kernel's launch count is set to 0 just before its path runs and read
 just after: K1 over phases 4-5 and again over phases 7-8, K2 over phases
@@ -558,7 +581,9 @@ node's ``dispatch`` route (``rows_operator_run``); its ``pipeline``
 route's delivered parts count the launches of all kernels together, and
 are printed in (a)'s line, not under any one kernel. K1, K2 and K3 over
 phase 29 (a)'s ``run_all`` (``launches_tools``; each scenario's, over all
-its runs, in ``tools_launches_by_scenario``). After every
+its runs, in ``tools_launches_by_scenario``), and over phase 30's four
+self-checks (``launches_selfchecks``; each tool's in
+``selfchecks_launches_by_tool``). After every
 main-path phase the dispatch must be clean: no device fault (no retry, every
 breaker closed and never opened), no audit mismatch, no conviction; only
 phases 16, 18 (c) and (e), and 26 expect otherwise. The
@@ -646,8 +671,10 @@ try:
     from stellar_tpu_torch.utils.transfer_ledger import (
         DEFAULT_FP_MAX_BYTES, transfer_ledger)
     from stellar_tpu_torch.analysis import overflow
-    from stellar_tpu_torch.tools import (kernel_cost, run_benchmarks,
-                                         trace_export, trace_kernel_time)
+    from stellar_tpu_torch.tools import (
+        hot_signer_selfcheck, kernel_cost, metrics_selfcheck,
+        pipeline_selfcheck, run_benchmarks, trace_export, trace_kernel_time,
+        transfer_selfcheck)
     # the kernels' multiply-adds, operations and bounds (the card's
     # figures with them)
     from stellar_tpu_torch.tools.kernel_cost import (
@@ -7099,6 +7126,112 @@ def phase_tools(info, txset_items, txset_want, bucket_ms):
     return res, launches
 
 
+# phase 30: the self-checks in order, and the limit on the phase's seconds
+SELFCHECKS = (("metrics", metrics_selfcheck), ("transfer", transfer_selfcheck),
+              ("pipeline", pipeline_selfcheck),
+              ("hot_signer", hot_signer_selfcheck)) \
+    if _IMPORT_ERROR is None else ()
+SELFCHECK_LIMIT_S = 120.0
+# phase 30 (e): K1-only 64-row calls read for the attribution floor
+FLOOR_CALLS = 40
+
+
+def attribution_floor():
+    """Phase 30 (e): ``FLOOR_CALLS`` K1-only calls of the metrics check's
+    64 rows from its 8 signers, the signer-table cache off for them, each
+    on a fresh verifier: their coverage of the blocking root (min,
+    median, the count under the check's 0.95) and the root's ms. Printed,
+    not gated: such a call leaves more than 5% of its root outside every
+    phase span (ROADMAP queue 3), where the metrics check's own call,
+    with its 8 first sights' table builds in ``prep``, passes."""
+    pool = metrics_selfcheck.signer_pool()
+    items = [pool[i % len(pool)] for i in range(metrics_selfcheck.N_SIGS)]
+    enabled = signer_table_cache.enabled
+    signer_table_cache.configure(enabled=False)
+    covs, roots = [], []
+    try:
+        for _ in range(FLOOR_CALLS):
+            v = BatchVerifier(bucket_sizes=(metrics_selfcheck.N_SIGS,))
+            before = tracing.span_totals()
+            check(bool(v.verify_batch(items).all()),
+                  "attribution floor: a verdict broke")
+            att = batch_engine.dispatch_attribution(
+                before, tracing.span_totals())
+            covs.append(att["coverage"])
+            roots.append(att["blocking_span_per_rep_ms"])
+    finally:
+        signer_table_cache.configure(enabled=enabled)
+    return {"calls": FLOOR_CALLS, "coverage_min": min(covs),
+            "coverage_median": float(np.median(covs)),
+            "under_gate": sum(c < metrics_selfcheck.MIN_COVERAGE
+                              for c in covs),
+            "root_ms_median": float(np.median(roots))}
+
+
+def phase_selfchecks(info):
+    """Phase 30: the four self-checks of the engine on the card, each
+    tool's ``run()`` in this process with its defaults (the card; the
+    hot signer at ``N_SIGNERS``). Each record is printed on a line of its
+    own and must be ``ok`` and on the card; K1's, K2's and K3's counts are
+    set to 0 before the phase and read after each tool, and each tool
+    must have launched its kernels: the metrics resolve one K1 launch
+    for its 8 first sights and one K2 for their 56 repeats, the transfer
+    and pipeline checks K3, the hot signer K1 and K2. The engines of the
+    metrics and hot-signer checks, which arm no fault, must end clean."""
+    t0 = time.perf_counter()
+    _zero_counts()
+    res = {"card": info["smi"], "tools": {}}
+    records = {}
+    clean_engines = []
+    prev = _counts()
+    for name, tool in SELFCHECKS:
+        t = time.perf_counter()
+        if name in ("metrics", "hot_signer"):
+            rec = tool.run(engines=clean_engines)
+        else:
+            rec = tool.run()
+        records[name] = rec
+        counts = _counts()
+        seconds = time.perf_counter() - t
+        res["tools"][name] = {"seconds": seconds, "launches": {
+            k: counts[k] - prev[k] for k in counts}}
+        prev = counts
+        print(f"[selfcheck] {name} ({seconds:.1f} s, launches "
+              f"{res['tools'][name]['launches']}): "
+              + json.dumps(rec, default=str))
+        check(rec["ok"], f"selfcheck {name}: {rec['problems']}")
+        check(rec["device"] == "cuda:0",
+              f"selfcheck {name} ran on {rec['device']}")
+    want = {"metrics": lambda n: n["verify_cold"] == 1 and
+            n["verify_hot"] == 1,
+            "transfer": lambda n: n["sha256"] > 0,
+            "pipeline": lambda n: n["sha256"] > 0,
+            "hot_signer": lambda n: n["verify_cold"] > 0 and
+            n["verify_hot"] > 0}
+    for name, ok in want.items():
+        check(ok(res["tools"][name]["launches"]),
+              f"selfcheck {name} launched "
+              f"{res['tools'][name]['launches']}")
+    check_dispatch_clean(clean_engines, "selfchecks (metrics, hot signer)")
+    hot = records["hot_signer"]
+    check(hot["distinct_signers"] == hot_signer_selfcheck.N_SIGNERS,
+          f"selfcheck hot_signer at {hot['distinct_signers']} signers")
+    launches = _counts()
+    floor = res["floor"] = attribution_floor()
+    print(f"[selfcheck] (e) attribution floor, not gated: {FLOOR_CALLS} "
+          f"K1-only 64-row calls covered {floor['coverage_min']:.4f} at "
+          f"least, {floor['coverage_median']:.4f} the median, "
+          f"{floor['under_gate']} under {metrics_selfcheck.MIN_COVERAGE}; "
+          f"root {floor['root_ms_median']:.3f} ms the median")
+    res["seconds"] = time.perf_counter() - t0
+    check(res["seconds"] < SELFCHECK_LIMIT_S,
+          f"phase 30 took {res['seconds']:.1f} s (limit "
+          f"{SELFCHECK_LIMIT_S:.0f})")
+    print(f"[selfcheck] phase 30 in {res['seconds']:.1f} s, launches "
+          f"{launches}; card {info['smi']}")
+    return res, launches
+
+
 def main() -> int:
     info = phase_device()
     dev = resolve_device(None)
@@ -7178,6 +7311,7 @@ def main() -> int:
             "hot": hot_batch[str(KERNEL_BATCHES[0])]["ms"],
             "hot_cold": next(v["ms"] for k, v in per_batch.items()
                              if k.startswith("hot_txset:"))})
+    selfchecks, sc_launches = phase_selfchecks(info)
     k2_txset = hot_batch[str(KERNEL_BATCHES[0])]["ms"]
     print(f"[hot-txset] K2 at B={KERNEL_BATCHES[0]} is {k2_txset:.4f} ms, "
           f"{k2_txset / hot_txset['p50_ms']:.1%} of the hot TxSet p50")
@@ -7219,6 +7353,10 @@ def main() -> int:
                      tools_launches_by_scenario={
                          n: r["launches_all_runs"]["verify_cold"]
                          for n, r in tools["a"]["runs"].items()},
+                     launches_selfchecks=sc_launches["verify_cold"],
+                     selfchecks_launches_by_tool={
+                         n: r["launches"]["verify_cold"]
+                         for n, r in selfchecks["tools"].items()},
                      block_sweep=k1_sweep, **builds["verify_cold"]),
         kernel_entry("verify_hot", "stellar_tpu_torch/csrc/verify_hot.cu",
                      "stellar_tpu/ops/verify.py:188", "verify_kernel_hot",
@@ -7249,6 +7387,10 @@ def main() -> int:
                      tools_launches_by_scenario={
                          n: r["launches_all_runs"]["verify_hot"]
                          for n, r in tools["a"]["runs"].items()},
+                     launches_selfchecks=sc_launches["verify_hot"],
+                     selfchecks_launches_by_tool={
+                         n: r["launches"]["verify_hot"]
+                         for n, r in selfchecks["tools"].items()},
                      **builds["verify_hot"]),
         kernel_entry("sha256", "stellar_tpu_torch/csrc/sha256.cu",
                      "stellar_tpu/ops/sha256.py:171", "sha256_kernel",
@@ -7279,6 +7421,10 @@ def main() -> int:
                      tools_launches_by_scenario={
                          n: r["launches_all_runs"]["sha256"]
                          for n, r in tools["a"]["runs"].items()},
+                     launches_selfchecks=sc_launches["sha256"],
+                     selfchecks_launches_by_tool={
+                         n: r["launches"]["sha256"]
+                         for n, r in selfchecks["tools"].items()},
                      **builds["sha256"]),
         kernel_entry("verify_sharded", source_line(vk.verify_kernel_sharded),
                      "stellar_tpu/ops/verify.py:211", "verify_kernel_sharded",
@@ -7314,7 +7460,8 @@ def main() -> int:
         "node_close": node_close, "catchup_chain": chain,
         "node_network": net, "soroban": soroban,
         "fault_domains": fault_domains, "operator": operator,
-        "analysis": analysis, "tools": tools, "card": info["smi"]}))
+        "analysis": analysis, "tools": tools, "selfchecks": selfchecks,
+        "card": info["smi"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}))

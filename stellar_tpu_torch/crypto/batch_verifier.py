@@ -263,6 +263,12 @@ class BatchVerifier(BatchEngine):
             cold_ix = np.asarray(cold_idx, dtype=np.intp)
         if not hot_items:
             return super().submit(items, trace_ids=trace_ids)
+        # the reference's partition meters: the rows each kernel takes,
+        # marked for a batch that rides hot at all
+        registry.meter(
+            "crypto.verify.signer_table.hot_rows").mark(len(hot_items))
+        registry.meter(
+            "crypto.verify.signer_table.cold_rows").mark(len(cold_items))
         hot_tr = [trace_ids[i] for i in hot_idx] if trace_ids else None
         cold_tr = [trace_ids[i] for i in cold_idx] if trace_ids else None
         resolve_hot = super().submit(hot_items, trace_ids=hot_tr,

@@ -33,7 +33,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 __all__ = ["build_library", "build_log", "nvcc_path", "library",
-           "library_path", "check_operands", "launch", "LIBRARIES"]
+           "library_path", "loaded_libraries", "check_operands", "launch",
+           "LIBRARIES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(_PKG)
@@ -175,6 +176,12 @@ def library(name: str, device: torch.device):
                                    f"{_error_string(name, lib, err)}")
             _consts_uploaded.add((name, device.index))
     return lib
+
+
+def loaded_libraries() -> Tuple[str, ...]:
+    """The kernel libraries this process has built or found and loaded
+    (:func:`library` loads each once)."""
+    return tuple(sorted(_libs))
 
 
 def check_operands(fn_name: str, ops, shapes) -> Tuple[torch.device, int]:

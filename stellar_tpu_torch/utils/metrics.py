@@ -626,7 +626,11 @@ class TimeSeriesRing:
     def snapshot(self, series=None, limit: int = 0) -> dict:
         """The reference's ``timeseries`` admin payload. ``series`` filters
         by name prefix; ``limit`` bounds samples per series (0 = all
-        retained). Partial windows are marked, never hidden."""
+        retained). Partial windows are marked, never hidden. A sample is
+        the ring's own ``(t_s, value)`` tuple, which nothing mutates: the
+        lists are copies, the samples are shared (the same JSON as the
+        reference's ``[t_s, value]`` lists, without a list built a
+        sample under the lock)."""
         limit = max(0, int(limit))
         with self._lock:
             names = sorted(n for n in self._series
@@ -639,7 +643,7 @@ class TimeSeriesRing:
                     "n": len(buf),
                     "window": self._samples,
                     "partial": len(buf) < self._samples,
-                    "samples": [list(p) for p in pts],
+                    "samples": pts,
                 }
             running = self._thread is not None and \
                 self._thread.is_alive()

@@ -98,9 +98,12 @@ ANALYSIS_MODULES = (
     "analysis.overflow", "analysis.coverage", "tools", "tools.analyze",
     "tools.kernel_cost", "tools.device_probe")
 
-# the benchmark runner, the profiler trace's reader and the span exporter
+# the benchmark runner, the profiler trace's reader, the span exporter
+# and the engine's four self-checks
 TOOLS_MODULES = ("tools.run_benchmarks", "tools.trace_kernel_time",
-                 "tools.trace_export")
+                 "tools.trace_export", "tools.metrics_selfcheck",
+                 "tools.transfer_selfcheck", "tools.pipeline_selfcheck",
+                 "tools.hot_signer_selfcheck")
 
 # modules the port names in a late import but lacks, each waiting for a
 # later slice (ROADMAP.md's known gaps): none
@@ -892,11 +895,13 @@ def test_entry_point_with_jax_blocked():
 
 
 def test_tools_with_jax_blocked(tmp_path):
-    """The three tools in a fresh interpreter in which importing jax or
-    stellar_tpu fails: ``run_benchmarks.main`` over stub harnesses with
-    the host oracle, writing into a temporary directory;
-    ``trace_kernel_time`` over a trace of one kernel; ``trace_export``'s
-    fleet window to a file."""
+    """The tools in a fresh interpreter in which importing jax or
+    stellar_tpu fails: every module of ``TOOLS_MODULES`` imports;
+    ``metrics_selfcheck.main`` on the CPU (one resolve through the plain
+    K1 and K2);
+    ``run_benchmarks.main`` over stub harnesses with the host oracle,
+    writing into a temporary directory; ``trace_kernel_time`` over a
+    trace of one kernel; ``trace_export``'s fleet window to a file."""
     trace = tmp_path / "t.json"
     trace.write_text(json.dumps({"traceEvents": [
         {"ph": "X", "cat": "kernel", "name": "verify_cold_kernel",
@@ -912,6 +917,8 @@ def test_tools_with_jax_blocked(tmp_path):
         "from stellar_tpu_torch.tools import run_benchmarks as rb",
         "from stellar_tpu_torch.tools import trace_export as te",
         "from stellar_tpu_torch.tools import trace_kernel_time as tk",
+        "from stellar_tpu_torch.tools import metrics_selfcheck as ms",
+        "assert ms.main(['--device', 'cpu']) == 0",
         "def stub(**kw):",
         "    return {'txs_per_sec': 1.0, 'close_mean_ms': 1.0,",
         "            'close_p99_ms': 1.0, 'tx_apply_per_sec': 1.0,",
@@ -936,6 +943,7 @@ def test_tools_with_jax_blocked(tmp_path):
     lines = proc.stdout.strip().splitlines()
     assert json.loads(lines[-1])["device_busy_ms_per_iter"] == 0.5
     assert json.loads(lines[-2])["wrote"] == ["b.json", "b.md"]
+    assert json.loads(lines[0])["ok"] is True
     rows = json.loads((tmp_path / "b.json").read_text())
     assert {r["verify_backend"] for r in rows.values()} == {"host-oracle"}
     fleet = json.loads((tmp_path / "f.json").read_text())
